@@ -1,0 +1,6 @@
+"""The slice of ``horovod_tpu/observability`` the serve loop touches:
+in-process metrics (:mod:`.metrics`, the ``SERVE_*`` objects) and spans
+(:mod:`.spans`). Off unless ``HVD_METRICS=1``; no exposition server in
+this port yet."""
+
+from . import metrics, spans  # noqa: F401

@@ -1,0 +1,126 @@
+"""In-process Counter / Gauge / Histogram objects under the names
+``horovod_tpu/observability/metrics.py`` gives them.
+
+Off unless ``HVD_METRICS=1`` (or :func:`enable`): a disabled metric does
+nothing, so the serve loop's instrumentation costs one flag check.
+Label-less only; the Prometheus exposition waits for a later slice.
+"""
+
+import os
+import threading
+
+_enabled = os.environ.get("HVD_METRICS", "0") == "1"
+
+
+def enabled():
+    return _enabled
+
+
+def enable():
+    global _enabled
+    _enabled = True
+
+
+def disable():
+    global _enabled
+    _enabled = False
+
+
+class Metric:
+    """One label-less family: ``inc`` and ``set`` move ``value``;
+    ``observe`` adds to a histogram's bucket counts, ``sum`` and
+    ``count``. ``collect()`` is ``[]`` until the metric saw activity."""
+
+    def __init__(self, name, help_, kind, buckets=()):
+        self.name, self.help, self.kind = name, help_, kind
+        self.buckets = tuple(buckets)
+        self._lock = threading.Lock()
+        self.touched = False
+        self.value = 0.0
+        self.counts = [0] * (len(self.buckets) + 1)  # +1: the +Inf bucket
+        self.sum = 0.0
+        self.count = 0
+
+    def inc(self, amount=1):
+        if not _enabled:
+            return
+        if self.kind == "counter" and amount < 0:
+            raise ValueError("counters can only increase")
+        with self._lock:
+            self.value += amount
+            self.touched = True
+
+    def set(self, value):
+        if not _enabled:
+            return
+        with self._lock:
+            self.value = float(value)
+            self.touched = True
+
+    def observe(self, value):
+        if not _enabled:
+            return
+        value = float(value)
+        with self._lock:
+            i = next((i for i, b in enumerate(self.buckets) if value <= b),
+                     len(self.buckets))
+            self.counts[i] += 1
+            self.sum += value
+            self.count += 1
+            self.touched = True
+
+    def collect(self):
+        with self._lock:
+            if not self.touched:
+                return []
+            if self.kind == "histogram":
+                return [((), {"buckets": list(self.counts), "sum": self.sum,
+                              "count": self.count})]
+            return [((), {"value": self.value})]
+
+
+def counter(name, help_=""):
+    return Metric(name, help_, "counter")
+
+
+def gauge(name, help_=""):
+    return Metric(name, help_, "gauge")
+
+
+def histogram(name, help_="", buckets=()):
+    return Metric(name, help_, "histogram", buckets)
+
+
+SERVE_QUEUE_DEPTH = gauge(
+    "hvd_serve_queue_depth",
+    "Requests waiting for admission into the decode batch")
+SERVE_KV_OCCUPANCY = gauge(
+    "hvd_serve_kv_occupancy",
+    "Fraction of usable KV pages owned by running requests")
+SERVE_BATCH_FILL = gauge(
+    "hvd_serve_batch_fill",
+    "Fraction of decode-batch slots doing useful work this step")
+SERVE_TOKENS = counter(
+    "hvd_serve_tokens", "Decode tokens generated")
+SERVE_PREEMPTIONS = counter(
+    "hvd_serve_preemptions",
+    "Running requests preempted back to the queue on KV-page starvation")
+SERVE_TTFT_SECONDS = histogram(
+    "hvd_serve_ttft_seconds",
+    "Per-request time-to-first-token, arrival to first token",
+    buckets=(.005, .01, .025, .05, .1, .25, .5, 1, 2.5, 5, 10, 30))
+SERVE_ITL_SECONDS = histogram(
+    "hvd_serve_itl_seconds",
+    "Per-request mean inter-token latency over its decode life",
+    buckets=(.001, .0025, .005, .01, .025, .05, .1, .25, .5, 1, 2.5))
+SERVE_PREFIX_HIT_RATIO = gauge(
+    "hvd_serve_prefix_hit_ratio",
+    "Fraction of admitted prompt tokens served from cached prefix pages")
+SERVE_SPEC_ACCEPTED_PER_STEP = gauge(
+    "hvd_serve_spec_accepted_per_step",
+    "Mean accepted draft tokens per speculative step")
+SERVE_PREFIX_EVICTIONS = counter(
+    "hvd_serve_prefix_evictions",
+    "Cached prefix pages LRU-evicted back to the pool")
+SERVE_SPEC_REJECTED = counter(
+    "hvd_serve_spec_rejected", "Draft tokens the target model rejected")
