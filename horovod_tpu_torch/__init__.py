@@ -5,13 +5,19 @@ the counterpart of ``horovod_tpu/x/y.py``. The port imports ``torch``
 and never JAX, nor anything of the JAX package; where it needs one of
 that package's framework-neutral modules it keeps its own copy.
 
-What is ported so far is inference at full width:
+What is ported so far is inference and single-card training at full
+width:
 
 - :mod:`.models.transformer` — config, params, ``forward`` (gather and
-  flash attention) and the forward-only ``loss_fn``;
-- :mod:`.ops.flash_attention` — the flash-attention forward, a
-  hand-written sm_90a CUDA kernel (``csrc/flash_fwd.cu``) with its plain
-  PyTorch version beside it;
+  flash attention) and the differentiable ``loss_fn`` (``remat``,
+  chunked loss);
+- :mod:`.ops.flash_attention` — flash attention forward and backward,
+  hand-written sm_90a CUDA kernels (``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd.cu``) with their plain PyTorch versions beside them;
+- :mod:`.parallel` — ``make_train_step`` (gradients and loss averaged
+  over a ``torch.distributed`` group, accumulation, buckets, wire-cast
+  compression), ``shard_batch`` and ``replicate``;
+- :mod:`.compression` — the fp16/bf16 compressors and wire-cast counters;
 - :mod:`.serving` — paged KV cache, kernel-free engine, scheduler and
   :class:`~.serving.loop.ServeLoop`.
 

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the
-source, so an edited kernel rebuilds), then loaded with ``ctypes``. No
-PyTorch header is compiled, which keeps a build to seconds.
+source and of the shared ``csrc/*.cuh`` headers, so an edited kernel
+rebuilds), then loaded with ``ctypes``. One library may hold several
+kernels (``flash_bwd`` holds dQ and dK/dV). No PyTorch header is
+compiled, which keeps a build to seconds.
 
 Builds are serialized across processes by an ``flock`` on
 ``csrc/build/.lock``, acquired with a bounded wait
@@ -39,8 +41,12 @@ def _nvcc():
 
 
 def _lib_path(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    h = hashlib.sha256()
+    for src in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                       if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -6,9 +6,11 @@ shapes (``wqkv [D,3,H,dh]``, ``wo [H,dh,D]``, ...), so a JAX init copies
 1:1 through :func:`horovod_tpu_torch.models.convert.params_from_jax`.
 float32 params, compute in ``cfg.dtype`` (bfloat16 by default).
 
-Single device only in this slice: the mesh paths (``ring`` attention,
-tensor-parallel specs, flash under ``shard_map``) come with the
-process-group slice.
+Differentiable end to end: ``loss_fn`` under autograd is the training
+loss, with flash attention's backward on the card's kernels (B2, B3)
+and ``cfg.remat`` as ``torch.utils.checkpoint``. Single device only:
+the mesh paths (``ring`` attention, tensor-parallel specs, flash under
+``shard_map``) come with the process-group slice.
 """
 
 import dataclasses
@@ -16,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
@@ -32,7 +35,7 @@ class TransformerConfig:
     d_ff: int = 4096
     max_seq_len: int = 2048
     n_experts: int = 0          # 0 = dense FFN; >0 = MoE every layer
-    # "gather" (einsum + softmax) | "flash" (csrc/flash_fwd.cu on CUDA) |
+    # "gather" (einsum + softmax) | "flash" (csrc/flash_*.cu on CUDA) |
     # "ring" (needs the process-group slice) | "auto" (resolve_attn)
     attn_impl: str = "auto"
     # Block size of the plain flash version (the kernel tiles by 64).
@@ -40,7 +43,9 @@ class TransformerConfig:
     # >0: the loss projects to vocab + log-softmax per chunk of this many
     # positions, so the [S, vocab] float32 tensor never exists whole.
     loss_chunk: int = 0
-    remat: bool = False         # training only; unused by this slice
+    # Training: recompute each block in the backward instead of keeping its
+    # activations (torch.utils.checkpoint, the reference's jax.checkpoint).
+    remat: bool = False
     dtype: str = "bfloat16"
     data_axis: str = "data"
     model_axis: str = "model"
@@ -154,8 +159,9 @@ def _attention(x, layer, cfg):
 
 def _attention_flash(x, layer, cfg):
     """Flash path: the [B,H,S,S] logits never exist in device memory. On
-    a CUDA tensor this launches csrc/flash_fwd.cu; on a CPU tensor it
-    runs the kernel's plain version."""
+    a CUDA tensor this launches csrc/flash_fwd.cu, and csrc/flash_bwd.cu
+    in the backward; on a CPU tensor it runs the kernels' plain
+    versions."""
     dt = cfg.compute_dtype
     q, k, v = _qkv(x, layer, cfg)
     ctx = flash_attention(q, k, v, causal=True, block=cfg.attn_block)
@@ -243,8 +249,13 @@ def forward(params, tokens, cfg: TransformerConfig, return_hidden=False):
     x = params["embed"].to(dt)[tokens]
     x = x + params["pos_embed"].to(dt)[:S][None]
     impl = resolve_attn(cfg, S, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in params["layers"]:
-        x = apply_block(layer, x, cfg, impl=impl)
+        if remat:   # the model draws no random numbers: no RNG to replay
+            x = checkpoint(apply_block, layer, x, cfg, impl,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = apply_block(layer, x, cfg, impl=impl)
     x = _layer_norm(x, params["final_ln"])
     if return_hidden:
         return x
@@ -258,11 +269,18 @@ def _nll(hidden, targets, embed):
     return -logp.gather(-1, targets[..., None])[..., 0]
 
 
+def _nll_sum(hidden, targets, embed):
+    return _nll(hidden, targets, embed).sum()
+
+
 def loss_fn(params, batch, cfg: TransformerConfig):
-    """Next-token cross-entropy, forward only. batch = {"tokens":
-    [B, S+1]}. With ``cfg.loss_chunk > 0`` the vocab projection and
-    log-softmax run one sequence chunk at a time; the chunked and full
-    losses are the same."""
+    """Next-token cross-entropy; differentiable (the training loss).
+    batch = {"tokens": [B, S+1]}. With ``cfg.loss_chunk > 0`` the vocab
+    projection and log-softmax run one sequence chunk at a time, each
+    under ``torch.utils.checkpoint`` (the reference's
+    ``lax.scan(jax.checkpoint(body))``), so the backward keeps no chunk's
+    ``[B, C, vocab]`` float32 logits; the chunked and full losses are the
+    same."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
     C = cfg.loss_chunk
@@ -272,8 +290,11 @@ def loss_fn(params, batch, cfg: TransformerConfig):
         return _nll(hidden, targets, params["embed"]).mean()
     if S % C != 0:
         raise ValueError(f"seq len {S} must divide by loss_chunk {C}")
+    grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, C):
-        total = total + _nll(hidden[:, c0:c0 + C], targets[:, c0:c0 + C],
-                             params["embed"]).sum()
+        args = (hidden[:, c0:c0 + C], targets[:, c0:c0 + C], params["embed"])
+        total = total + (checkpoint(_nll_sum, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if grad else _nll_sum(*args))
     return total / (targets.shape[0] * S)

@@ -1,20 +1,24 @@
-"""Flash attention forward: the port of ``horovod_tpu/ops/pallas_attention.py``.
+"""Flash attention, forward and backward: the port of
+``horovod_tpu/ops/pallas_attention.py``.
 
 Public functions keep the reference's ``[B, S, H, D]`` layout and
 signatures, minus ``interpret``. The LSE comes back as ``[B, H, S]``
-float32, ``-1e30`` on fully masked rows.
+float32, ``-1e30`` on fully masked rows. Both outputs are
+differentiable, the LSE too, as in the reference's ``_flash``
+custom_vjp: a call that needs a gradient goes through
+:class:`_FlashFn`, whose backward folds the LSE cotangent into
+Δ = rowsum(dO∘O) − dLSE, as ``_flash_bwd`` does.
 
-Two implementations of one function live here:
+Two implementations of each pass live here:
 
-- the kernel, ``csrc/flash_fwd.cu`` (hand-written for sm_90a), which a
-  tensor on a CUDA device always goes to;
-- the plain PyTorch version, :func:`_flash_plain`, an online-softmax loop
-  over K blocks in float32, which a tensor on the CPU goes to. It is also
-  what the kernel is held against on the card.
-
-This slice ports the forward only. A CUDA call that would need a gradient
-raises ``NotImplementedError``: the backward kernels (the reference's
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) come with the training slice.
+- the kernels, hand-written for sm_90a: ``csrc/flash_fwd.cu`` (the
+  reference's ``_fwd_kernel``) and ``csrc/flash_bwd.cu`` (its
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), which a tensor on a CUDA
+  device always goes to;
+- the plain PyTorch versions, :func:`_flash_plain` and
+  :func:`_flash_bwd_plain`, float32 loops over blocks, which a tensor on
+  the CPU goes to. They are also what the kernels are held against on
+  the card.
 """
 
 import ctypes
@@ -89,22 +93,121 @@ def _flash_plain(q, k, v, mode, sm_scale, block):
     return o.to(q.dtype).permute(0, 2, 1, 3), lse
 
 
+def _flash_bwd_plain(q, k, v, o, lse, do, delta, mode, sm_scale, block):
+    """The FA2 backward in float32 over blocks, as ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel`` compute it: P = exp(S - LSE), zeroed explicitly
+    outside the mask; dP = dO V^T; dS = P (dP - Δ); dQ = sm_scale ΣdS K;
+    dK = ΣdS^T (Q sm_scale); dV = ΣP^T dO. ``delta`` is Δ = rowsum(dO O)
+    - dLSE, ``[B, H, S]`` float32 (``o`` only enters through it).
+    Returns (dq, dk, dv), ``[B, S, H, D]`` in q's, k's and v's dtypes."""
+    B, S, H, D = q.shape
+    qf = q.permute(0, 2, 1, 3).float() * sm_scale          # [B,H,S,D]
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    dof = do.permute(0, 2, 1, 3).float()
+    dq, dk, dv = (torch.zeros(B, H, S, D, device=q.device) for _ in range(3))
+    pos = torch.arange(S, device=q.device)
+    for i0 in range(0, S, block):
+        qb, dob = qf[:, :, i0:i0 + block], dof[:, :, i0:i0 + block]
+        bq = qb.shape[2]
+        lse_b = lse[:, :, i0:i0 + bq, None]
+        delta_b = delta[:, :, i0:i0 + bq, None]
+        k_end = S if mode == "none" else min(i0 + bq, S)   # causal skip
+        for j0 in range(0, k_end, block):
+            kb, vb = kf[:, :, j0:j0 + block], vf[:, :, j0:j0 + block]
+            p = torch.exp(qb @ kb.transpose(-1, -2) - lse_b)
+            if mode != "none":
+                # select, not multiply: a fully masked row has LSE = -1e30,
+                # so exp(S - LSE) is +inf there and inf * 0 would be NaN.
+                qpos = pos[i0:i0 + bq, None]
+                kpos = pos[None, j0:j0 + kb.shape[2]]
+                keep = qpos > kpos if mode == "strict" else qpos >= kpos
+                p = torch.where(keep, p, 0.0)
+            ds = p * (dob @ vb.transpose(-1, -2) - delta_b)
+            dq[:, :, i0:i0 + bq] += ds @ kb
+            dk[:, :, j0:j0 + block] += ds.transpose(-1, -2) @ qb
+            dv[:, :, j0:j0 + block] += p.transpose(-1, -2) @ dob
+    return ((dq * sm_scale).to(q.dtype).permute(0, 2, 1, 3),
+            dk.to(k.dtype).permute(0, 2, 1, 3),
+            dv.to(v.dtype).permute(0, 2, 1, 3))
+
+
 def _route(q, k, v):
-    """'plain' for CPU tensors, 'kernel' for CUDA tensors; raises for a
-    CUDA call that needs a gradient (no backward kernel in this slice)
-    and for any other device."""
+    """Where a call goes: ``(impl, grad)`` with impl 'plain' for CPU
+    tensors and 'kernel' for CUDA tensors (it raises for mixed or other
+    devices), and grad True when autograd needs the backward, in which
+    case the call runs through :class:`_FlashFn` with the same impl."""
     devs = {t.device.type for t in (q, k, v)}
     if devs == {"cpu"}:
-        return "plain"
-    if devs != {"cuda"}:
+        impl = "plain"
+    elif devs == {"cuda"}:
+        impl = "kernel"
+    else:
         raise ValueError(f"q/k/v must all be on the CPU or all on CUDA, "
                          f"got {sorted(devs)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only in this slice: the "
-            "backward kernels (dQ and dK/dV) come with the training slice; "
-            "call it under torch.no_grad() or on tensors that need no grad")
-    return "kernel"
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    return impl, grad
+
+
+def _forward(impl, q, k, v, mode, sm_scale, block):
+    if impl == "plain":
+        return _flash_plain(q, k, v, mode, sm_scale, block)
+    return flash_fwd_cuda(q, k, v, mode, sm_scale)
+
+
+class _FlashFn(torch.autograd.Function):
+    """``(q, k, v) -> (o, lse)``, both outputs differentiable, as the
+    reference's ``_flash`` custom_vjp. Forward: B1 or the plain forward.
+    Backward: Δ = rowsum(dO∘O) − dLSE in float32, then B2 and B3 or the
+    plain backward. Which of the two is decided by the tensors' device,
+    as everywhere in this module."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, impl, mode, sm_scale, block):
+        o, lse = _forward(impl, q, k, v, mode, sm_scale, block)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (impl, mode, sm_scale, block)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        impl, mode, sm_scale, block = ctx.args
+        # Autograd hands an unused output's cotangent in as zeros.
+        delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)  # [B,H,S]
+                 - dlse.float()).contiguous()
+        if impl == "plain":
+            dq, dk, dv = _flash_bwd_plain(q, k, v, o, lse, do, delta, mode,
+                                          sm_scale, block)
+        else:
+            dq, dk, dv = flash_bwd_cuda(q, k, v, do, lse, delta, mode,
+                                        sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def _check_args(name, q, k, v):
+    """The checks every kernel wrapper makes before a launch."""
+    dev = q.device
+    if any(t.device != dev for t in (k, v)):
+        raise ValueError("q/k/v must be on one CUDA device")
+    if q.dtype not in _DTYPE_ID or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
+                        f"dtype, got {q.dtype} {k.dtype} {v.dtype}")
+    if not 0 < q.shape[-1] <= 128:
+        raise ValueError(f"{name} takes head dim 1..128, got {q.shape[-1]}")
+
+
+def _bhs(*tensors):
+    """Element strides of the B, S and H dims of each [B, S, H, D]."""
+    return [c for t in tensors for c in (t.stride(0), t.stride(1),
+                                         t.stride(2))]
+
+
+def _check_launch(lib, fn, err, dev):
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed on {dev}: "
+                           + lib.hvd_cuda_error_string(err).decode())
 
 
 def flash_fwd_cuda(q, k, v, mode, sm_scale):
@@ -112,30 +215,21 @@ def flash_fwd_cuda(q, k, v, mode, sm_scale):
     ``[B, S, H, D]`` CUDA tensors (bf16 or f32, D <= 128, last stride 1).
     Returns (o [B,S,H,D], lse [B,H,S] float32). Counts each launch in
     ``flash_fwd_cuda.launches``."""
+    _check_args("flash_fwd", q, k, v)
     B, S, H, D = q.shape
     dev = q.device
-    if any(t.device != dev for t in (k, v)):
-        raise ValueError("q/k/v must be on one CUDA device")
-    if q.dtype not in _DTYPE_ID or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype} {k.dtype} {v.dtype}")
-    if not 0 < D <= 128:
-        raise ValueError(f"flash_fwd takes head dim 1..128, got {D}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    lib = _lib()
-    strides = [c for t in (q, k, v) for c in (t.stride(0), t.stride(1),
-                                              t.stride(2))]
+    lib = _lib("flash_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hvd_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), lse.data_ptr(),
-                                _DTYPE_ID[q.dtype], B, S, H, D, *strides,
-                                float(sm_scale), _MODE_ID[mode], stream)
-    if err != 0:
-        raise RuntimeError("flash_fwd launch failed: "
-                           + lib.hvd_cuda_error_string(err).decode())
+                                _DTYPE_ID[q.dtype], B, S, H, D,
+                                *_bhs(q, k, v), float(sm_scale),
+                                _MODE_ID[mode], stream)
+    _check_launch(lib, "flash_fwd", err, dev)
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -143,13 +237,96 @@ def flash_fwd_cuda(q, k, v, mode, sm_scale):
 flash_fwd_cuda.launches = 0
 
 
-def _lib():
-    lib = _build.load("flash_fwd")
+def _bwd_args(q, k, v, do, lse, delta):
+    """Checked kernel arguments of the backward: q, k, v, dO with unit
+    last stride (other strides are passed through), LSE and Δ as
+    contiguous ``[B, H, S]`` float32."""
+    _check_args("flash_bwd", q, k, v)
+    B, S, H, D = q.shape
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"dO must be {tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(do.shape)} on {do.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, S) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be [B, H, S] float32 on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype}")
+    # dO often comes from autograd non-contiguous (an einsum's backward,
+    # an expanded zero): strides are passed, only a D stride != 1 copies.
+    q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v, do.to(q.dtype)))
+    return q, k, v, do, lse.contiguous(), delta.contiguous()
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale):
+    """Launch B2 (``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dq``) on the
+    current stream: dQ ``[B, S, H, D]`` in q's dtype. Counts each launch
+    in ``flash_bwd_dq_cuda.launches``."""
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    B, S, H, D = q.shape
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = _lib("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hvd_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_ID[q.dtype], B, S, H, D, *_bhs(q, k, v, do),
+            float(sm_scale), _MODE_ID[mode], stream)
+    _check_launch(lib, "flash_bwd_dq", err, q.device)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale):
+    """Launch B3 (``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dkv``) on the
+    current stream: (dK, dV) ``[B, S, H, D]`` in k's and v's dtype. Counts
+    each launch in ``flash_bwd_dkv_cuda.launches``."""
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    B, S, H, D = q.shape
+    dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
+    lib = _lib("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hvd_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_ID[q.dtype], B, S, H, D, *_bhs(q, k, v, do),
+            float(sm_scale), _MODE_ID[mode], stream)
+    _check_launch(lib, "flash_bwd_dkv", err, q.device)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq_cuda.launches = 0
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta, mode, sm_scale):
+    """B2 then B3 on the current stream: (dq, dk, dv)."""
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale)
+    return dq, dk, dv
+
+
+# ctypes signatures: pointers, then ints (dtype, B, S, H, D), the
+# B/S/H strides of each [B, S, H, D] input, sm_scale, mode, stream.
+_SIGNATURES = {
+    "flash_fwd": {"hvd_flash_fwd": (5, 3)},
+    "flash_bwd": {"hvd_flash_bwd_dq": (7, 4), "hvd_flash_bwd_dkv": (8, 4)},
+}
+
+
+def _lib(name):
+    lib = _build.load(name)
     if not getattr(lib, "_hvd_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hvd_flash_fwd.argtypes = ([p] * 5 + [i] * 5 + [ll] * 9
-                                      + [ctypes.c_float, i, p])
-        lib.hvd_flash_fwd.restype = i
+        for fn, (n_ptr, n_strided) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = ([p] * n_ptr + [i] * 5
+                                         + [ll] * (3 * n_strided)
+                                         + [ctypes.c_float, i, p])
+            getattr(lib, fn).restype = i
         lib.hvd_cuda_error_string.argtypes = [i]
         lib.hvd_cuda_error_string.restype = ctypes.c_char_p
         lib._hvd_typed = True
@@ -165,9 +342,10 @@ def flash_attention_lse(q, k, v, *, mode="diag", sm_scale=None, block=256):
     block = _validate(q, k, v, block)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if _route(q, k, v) == "plain":
-        return _flash_plain(q, k, v, mode, float(sm_scale), block)
-    return flash_fwd_cuda(q, k, v, mode, sm_scale)
+    impl, grad = _route(q, k, v)
+    if grad:
+        return _FlashFn.apply(q, k, v, impl, mode, float(sm_scale), block)
+    return _forward(impl, q, k, v, mode, float(sm_scale), block)
 
 
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, block=256):

@@ -1,5 +1,7 @@
 """The port's flash-attention forward (horovod_tpu_torch/ops/flash_attention.py)
-against the JAX package's Pallas kernel, run in interpret mode on the CPU.
+against the JAX package's Pallas kernel, run in interpret mode on the CPU,
+and the wrapper's dispatch to the kernel or plain route (the backward's
+parity tests are in test_torch_flash_attention_bwd.py).
 
 On the CPU the port's wrapper runs the kernel's plain version (an
 online-softmax loop over K blocks in float32), so these tests hold the
@@ -78,16 +80,61 @@ def _fake(device, requires_grad):
                                  requires_grad=requires_grad)
 
 
-def test_cuda_grad_raises_not_implemented():
-    """The wrapper's dispatch alone: a CUDA call needing a gradient names
-    the training slice instead of falling back to the plain version."""
+def test_dispatch_routes_grad_calls_to_the_function():
+    """The wrapper's dispatch alone: a CUDA call that needs a gradient
+    goes to the kernel route through _FlashFn (it no longer raises), a CPU
+    call to the plain route, and mixed devices still raise."""
     args = [_fake("cuda", True), _fake("cuda", False), _fake("cuda", False)]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa._route(*args)
+    assert fa._route(*args) == ("kernel", True)
     with torch.no_grad():
-        assert fa._route(*args) == "kernel"
-    assert fa._route(*[_fake("cuda", False)] * 3) == "kernel"
-    assert fa._route(*[_fake("cpu", True)] * 3) == "plain"
+        assert fa._route(*args) == ("kernel", False)
+    assert fa._route(*[_fake("cuda", False)] * 3) == ("kernel", False)
+    assert fa._route(*[_fake("cpu", True)] * 3) == ("plain", True)
+    assert fa._route(*[_fake("cpu", False)] * 3) == ("plain", False)
     with pytest.raises(ValueError):
         fa._route(_fake("cpu", False), _fake("cuda", False),
                   _fake("cuda", False))
+    q, k, v = (torch.tensor(x).requires_grad_()
+               for x in _inputs(3, (1, 64, 2, 32)))
+    o, lse = fa.flash_attention_lse(q, k, v, mode="diag", block=32)
+    assert type(o.grad_fn).__name__ == "_FlashFnBackward"
+    assert lse.grad_fn is o.grad_fn
+    with torch.no_grad():
+        assert fa.flash_attention_lse(q, k, v, block=32)[0].grad_fn is None
+
+
+def test_kernel_route_wiring(monkeypatch):
+    """The kernel route's autograd wiring, with the launches replaced by
+    the plain versions (a CUDA kernel runs only on the card): the forward
+    launches B1 once, the backward B2 and B3 once each, with Δ =
+    rowsum(dO∘O) − dLSE, and the gradients equal the plain route's."""
+    calls = []
+
+    def fwd(q, k, v, mode, scale):
+        calls.append("fwd")
+        return fa._flash_plain(q, k, v, mode, scale, 64)
+
+    def bwd(q, k, v, do, lse, delta, mode, scale):
+        calls.append("bwd")
+        return fa._flash_bwd_plain(q, k, v, None, lse, do, delta, mode,
+                                   scale, 64)
+
+    x = [torch.tensor(a) for a in _inputs(4, (2, 128, 2, 32))]
+    rng = np.random.default_rng(5)
+    do = torch.tensor(rng.standard_normal((2, 128, 2, 32)),
+                      dtype=torch.float32)
+    dlse = torch.tensor(rng.standard_normal((2, 2, 128)),
+                        dtype=torch.float32)
+    grads = {}
+    for route in ("plain", "kernel"):
+        if route == "kernel":
+            monkeypatch.setattr(fa, "flash_fwd_cuda", fwd)
+            monkeypatch.setattr(fa, "flash_bwd_cuda", bwd)
+            monkeypatch.setattr(fa, "_route",
+                                lambda q, k, v: ("kernel", True))
+        q, k, v = (t.clone().requires_grad_() for t in x)
+        o, lse = fa.flash_attention_lse(q, k, v, mode="strict", block=64)
+        grads[route] = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+    assert calls == ["fwd", "bwd"]
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
