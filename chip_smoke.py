@@ -29,11 +29,26 @@ Phases (each prints its lines; any failure exits non-zero):
    flash against gather (f32 and bf16), launches per step (also with
    remat), a falling loss, tokens/s and a profile; then the long-context
    train step, whose step-0 loss must equal phase 2's eval loss;
-5. one JSON line of kernels, then the result line.
+5. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+   the bench's resnet50 config, through ``make_train_step`` over the
+   same group: step 0 with norm="pallas" (the B4 kernel BN) against
+   norm="flax" (torch ops) from the same weights, in float32 at B=16
+   and in bf16 at B=128 (loss, every gradient leaf, every running mean
+   and var); B4's launches (106) and layout copies per step; a falling
+   loss over 5 steps; images/s for each of the three norms and a
+   profile; the eval ``entry()``'s logits;
+6. one JSON line of kernels, then the result line.
 
-Phases 2-3 (serving) and 4 (training) are the main paths: each starts
-with every kernel's launch count at 0 and must launch the kernels it
-runs. Exits with code 2, printing no result, when no CUDA device is present.
+The kernel phase 1 also holds B4 (csrc/paired_reduce.cu) against its
+plain version at every (R, C) a ResNet-50 step gives it, at ragged
+shapes and on an unaligned pointer, bf16 and f32, as (x, x) and (dy, x),
+checks that two launches give the same bits, and times the kernel, the
+plain version and torch's own batch-norm reductions (yardsticks only).
+
+Phases 2-3 (serving), 4 (training) and 5 (ResNet training) are the main
+paths: each starts with every kernel's launch count at 0 and must launch
+the kernels it runs. Exits with code 2, printing no result, when no CUDA
+device is present.
 """
 
 import dataclasses
@@ -61,7 +76,15 @@ KERNELS = [{
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
     "replaces": "horovod_tpu/ops/pallas_attention.py:166",
+}, {
+    "name": "paired_reduce",
+    "route": "cuda",
+    "source": "horovod_tpu_torch/csrc/paired_reduce.cu",
+    "replaces": "horovod_tpu/ops/pallas_norm.py:62",
 }]
+# The shape the kernels line reports B4 at: the backward's (dy, x) over
+# ResNet-50's largest bf16 layers at B=128 (stage 1's bn3 and proj_bn).
+B4_LINE_SHAPE = (401408, 256)
 
 # Published dense peaks per card, as nvidia-smi names it: (device memory
 # bytes/s, bf16 tensor-core FLOP/s, float32 CUDA-core FLOP/s).
@@ -107,6 +130,34 @@ TOL_TRAIN_F32 = 1e-4
 TOL_TRAIN_BF16_LOSS, TOL_TRAIN_BF16_GRAD = 2e-2, 0.1
 # Served float32 logits against forward(flash) in float32.
 TOL_SERVE_F32 = 1e-3
+# B4 against its plain version, per channel: |s - plain| <= 1e-5 * sum_r|a|
+# and |p - plain| <= 1e-5 * sum_r|a*b|. Both sum in float32, in another
+# order, over up to 1.6 M rows: the rounding of such a sum stays far
+# below 1e-5 of the sum of the magnitudes (the kernel's partial sums run
+# over at most a few thousand rows each).
+TOL_B4 = 1e-5
+# ResNet-50 step 0, norm="pallas" (B4 and the reference's affine) against
+# norm="flax" (float32 normalization), same weights and batch. The two
+# compute the same function with other rounding: the kernel BN's y = x*a
+# + b with b = beta - gamma*inv*mean against flax's (x - mean)*mul +
+# bias. float32 at B=16: the loss agrees to float32 rounding (1e-4), and
+# so do the activations, but a last-bit difference flips a ReLU or
+# max-pool choice here and there among 10^8 units, which moves the
+# gradient of the leaves that sum over the residual stream (the bn3 and
+# proj_bn biases; on the CPU at B=16, 224x224, flax's own float32
+# gradient is 5.8e-4 from float64 there, the kernel BN's 1.7e-3, and a
+# float64 backward does not change the latter): every leaf within 1e-2
+# in relative norm and all leaves as one vector within 1e-3; running
+# statistics within 1e-4 + 1e-4|flax|. bf16 at B=128: the kernel BN
+# rounds a and b to bf16 (2^-9 relative) and computes y in bf16, flax
+# rounds once, so every BN output differs by up to a bf16 step, over 53
+# layers: loss within 2e-2; all leaves as one vector within 0.1, and the
+# residual-stream bias leaves, the most sensitive, within 0.5 each;
+# running statistics within 2e-2 + 2e-2|flax|. (Both set from the first
+# run on the card, H100 80GB HBM3: f32 worst leaf 3.5e-3, whole 3.5e-4;
+# bf16 worst leaf 0.235, whole 0.051.)
+TOL_RESNET_F32 = dict(loss=1e-4, grad=1e-2, whole=1e-3, stats=(1e-4, 1e-4))
+TOL_RESNET_BF16 = dict(loss=2e-2, grad=0.5, whole=0.1, stats=(2e-2, 2e-2))
 
 
 class PhaseError(RuntimeError):
@@ -139,9 +190,13 @@ def ptxas_summary(log):
     out, name, spill = [], None, "?"
     for ln in log.splitlines():
         m = re.search(r"Function properties for \S*?\d"   # length prefix
-                      r"(flash_\w+?_kernel)ILi(\d+)E", ln)
+                      r"((?:flash|paired)_\w+?_kernel)(?:I(\w+?)E)?E?v",
+                      ln)
         if m:
-            name = f"{m[1]}<{m[2]}>"
+            args = m[2] or ""
+            args = re.fullmatch(r"Li(\d+)", args)[1] \
+                if re.fullmatch(r"Li(\d+)", args) else args
+            name = f"{m[1]}<{args}>" if args else m[1]
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m[1]
@@ -166,12 +221,39 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph and replayed, timed with CUDA events, so the host's cost of a
+    call (Python, ctypes, allocation) drops out."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def profile_line(torch, label, fn):
     """Device busy share over one call of ``fn`` and the kernels that took
     most device time, from torch.profiler (CUPTI); then the host side:
     self CPU time of the ops launched and the ops that took most. Wall
     time includes the profiler's own cost, so the busy share is a lower
-    bound and the host times are upper bounds."""
+    bound and the host times are upper bounds. Returns (the kernels'
+    events, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -189,7 +271,7 @@ def profile_line(torch, label, fn):
                   key=lambda e: -e.device_time_total)
     if not kern:
         print(f"profile {label}: no device time recorded (not measured)")
-        return
+        return [], wall_ms
     busy = sum(e.device_time_total for e in kern) / 1e3
     top = "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.2f} ms"
                     f" x{e.count}" for e in kern[:6])
@@ -202,6 +284,7 @@ def profile_line(torch, label, fn):
     print(f"profile {label} host: self CPU "
           f"{sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms over "
           f"{sum(e.count for e in host)} op calls; top: {top}")
+    return kern, wall_ms
 
 
 def flash_bound_ms(shape, dtype_name, mode, spec):
@@ -693,6 +776,272 @@ def phase_train(torch, tfm, fa, dp, params, cfg, group, longctx):
           f"ms/step, {4096 / sec:.1f} tokens/s (1 step)")
 
 
+def b4_bound_ms(R, C, dtype_name, same, spec):
+    """B4's least time: each distinct input read once (``same``: a and b
+    are one tensor) and s, p written once in float32, over the memory
+    rate; 3 float32 operations an element (an add for s, a multiply and
+    an add for p) over the CUDA cores' float32 rate."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (1 if same else 2) * R * C * item + 2 * C * 4
+    _, bw, _, f32 = spec
+    t_bytes, t_ops = nbytes / bw, 3 * R * C / f32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def resnet_layout(torch, resnet, batch, image):
+    """What one ResNet-50 (s2d) training forward at ``batch`` x ``image``
+    gives its BatchNorms and convolutions, from a forward on the meta
+    device (no memory, no kernel): ``{(R, C): layers}`` of the BN inputs
+    and the multiply-adds of the convolutions and the head."""
+    model = resnet.ResNet50(stem="s2d", norm="flax", device="meta")
+    shapes, macs = {}, [0]
+
+    def on_norm(m, args):
+        x = args[0]
+        key = (x.numel() // x.shape[-1], x.shape[-1])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    def on_conv(m, args, out):
+        _, i, kh, kw = m.kernel.shape
+        macs[0] += out.numel() * i * kh * kw
+
+    for m in model.modules():
+        if isinstance(m, tuple(resnet.NORMS.values())):
+            m.register_forward_pre_hook(on_norm)
+        elif isinstance(m, resnet.Conv):
+            m.register_forward_hook(on_conv)
+    model(torch.empty((batch, image, image, 3), device="meta"), train=True)
+    macs[0] += batch * model.head.kernel.numel()
+    return shapes, macs[0]
+
+
+def phase_kernel_b4(torch, bn, spec, shapes):
+    """B4 (paired_reduce_cuda) against paired_reduce_plain on the card at
+    every (R, C) of ``shapes`` (ResNet-50's BN inputs at B=128), at
+    ragged shapes (R prime, C in {1, 12, 1000}) and on a pointer one
+    element off alignment (the scalar path), bf16 and f32, as (x, x) and
+    (dy, x); two launches must give the same bits. Then times at every
+    ResNet-50 shape in bf16, and their sum over one step."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    ragged = [(1000003, 1), (1000003, 12), (10007, 1000)]
+    worst = 0.0
+    cases = [(R, C, 0) for R, C in sorted(shapes) + ragged] + [(10007, 64, 1)]
+    for R, C, off in cases:
+        for dname, dt in dts.items():
+            for same in (True, False):
+                x, dy = (torch.randn(R * C + off, generator=gen,
+                                     device="cuda").to(dt)[off:].view(R, C)
+                         for _ in range(2))
+                a, b = (x, x) if same else (dy, x)
+                s, p = bn.paired_reduce(a, b)
+                s2, p2 = bn.paired_reduce(a, b)
+                torch.cuda.synchronize()
+                ps, pp = bn.paired_reduce_plain(a, b)
+                af, bf = a.float(), b.float()
+                es, ep = (s - ps).abs(), (p - pp).abs()
+                rel_s = (es / af.abs().sum(0).clamp_min(1e-30)).max().item()
+                rel_p = (ep / (af * bf).abs().sum(0).clamp_min(1e-30)) \
+                    .max().item()
+                bits = torch.equal(s, s2) and torch.equal(p, p2)
+                where = " one element off alignment" if off else ""
+                line = (f"kernel paired_reduce [{R}, {C}]{where} {dname} "
+                        f"{'(x, x)' if same else '(dy, x)'}: "
+                        f"max|s-plain|/sum|a| {rel_s:.3g}, max|p-plain|/"
+                        f"sum|ab| {rel_p:.3g} (tol {TOL_B4}), two launches "
+                        f"{'bit-equal' if bits else 'DIFFER'}")
+                check(rel_s <= TOL_B4 and rel_p <= TOL_B4 and bits
+                      and bool(torch.isfinite(s).all())
+                      and bool(torch.isfinite(p).all()), line)
+                print(line)
+                if (R, C) == B4_LINE_SHAPE and dname == "bfloat16" \
+                        and not same:
+                    worst = max(es.max().item(), ep.max().item())
+                del x, dy, a, b, af, bf
+
+    timings = {}
+    step = dict.fromkeys(("ms", "call_ms", "plain_ms", "library_ms",
+                          "bound_ms"), 0.0)
+    for (R, C), layers in sorted(shapes.items()):
+        x, dy = (torch.randn((R, C), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        # torch's own reductions take NCHW-logical channels-last tensors
+        x4, dy4 = (t.view(R, 1, 1, C).permute(0, 3, 1, 2) for t in (x, dy))
+        mean, invstd = torch.batch_norm_stats(x4, 1e-5)
+        reps = 20
+        for same, (a, b) in ((True, (x, x)), (False, (dy, x))):
+            lib = (lambda: torch.batch_norm_stats(x4, 1e-5)) if same else (
+                lambda: torch.batch_norm_backward_reduce(
+                    dy4, x4, mean, invstd, None, True, False, False))
+            t = {"ms": graph_ms(torch, lambda: bn.paired_reduce_cuda(a, b),
+                                reps),
+                 "call_ms": time_ms(torch, lambda: bn.paired_reduce_cuda(
+                     a, b), reps),
+                 "plain_ms": graph_ms(torch, lambda: bn.paired_reduce_plain(
+                     a, b), reps),
+                 "library_ms": graph_ms(torch, lib, reps)}
+            t["bound_ms"], t["bound_by"] = b4_bound_ms(R, C, "bfloat16",
+                                                       same, spec)
+            timings[(R, C), same] = t
+            for k in step:
+                step[k] += layers * t[k]
+            lib = "batch_norm_stats" if same \
+                else "batch_norm_backward_reduce"
+            print(f"time paired_reduce [{R}, {C}] bf16 "
+                  f"{'(x, x)' if same else '(dy, x)'} x{layers} layers: "
+                  f"kernel {t['ms']:.4f} ms (a call from Python "
+                  f"{t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+                  f"{lib} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}, {spec[0]} peaks), kernel at "
+                  f"{t['bound_ms'] / t['ms']:.1%} of bound")
+        del x, dy, x4, dy4
+    n = 2 * sum(shapes.values())
+    print(f"time paired_reduce over one ResNet-50 B=128 step ({n} "
+          f"launches): kernel {step['ms']:.3f} ms of device time (calls "
+          f"from Python back to back {step['call_ms']:.3f} ms), bound "
+          f"{step['bound_ms']:.3f} ms ({step['bound_ms'] / step['ms']:.1%}), "
+          f"plain {step['plain_ms']:.3f} ms, torch's batch-norm reductions "
+          f"{step['library_ms']:.3f} ms (device times from CUDA graph "
+          f"replays)")
+    return worst, timings[B4_LINE_SHAPE, False]
+
+
+def _resnet_model(torch, resnet, state, norm, dtype):
+    """ResNet-50 (s2d) on the card with ``norm`` and ``dtype``, loaded with
+    ``state`` (every norm has the same params and buffers)."""
+    model = resnet.ResNet50(stem="s2d", norm=norm, dtype=dtype,
+                            device="cuda")
+    model.load_state_dict(state)
+    return model
+
+
+def _resnet_step0(torch, resnet, model, batch):
+    """Loss, {name: grad} and {name: running stat} of one training forward
+    and backward (no update)."""
+    params = dict(model.named_parameters())
+    names = sorted(params)
+    with torch.enable_grad():
+        loss = resnet.make_loss_fn(model)(params, batch)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+    return (loss.item(), dict(zip(names, grads)),
+            {n: b.clone() for n, b in model.named_buffers()})
+
+
+def phase_resnet(torch, resnet, bn, dp, graft_entry, group, macs_per_image):
+    """ResNet-50 training through make_train_step over ``group``."""
+    B, image = 128, 224
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((B, image, image, 3),
+                                         dtype=np.float32), device="cuda")
+    batch = {"images": x.to(torch.bfloat16),      # as bench.py's batch
+             "labels": torch.tensor(rng.integers(0, 1000, B), device="cuda")}
+    del x
+    state = resnet.create_train_state(
+        torch.Generator(device="cuda").manual_seed(0), image_size=image,
+        stem="s2d", norm="pallas", device="cuda").state_dict()
+
+    # Step 0, norm="pallas" (B4) against norm="flax", same weights.
+    for dt, bsz, tol in (("float32", 16, TOL_RESNET_F32),
+                         ("bfloat16", B, TOL_RESNET_BF16)):
+        sub = {k: v[:bsz] for k, v in batch.items()}
+        res = {}
+        for norm in ("pallas", "flax"):
+            model = _resnet_model(torch, resnet, state, norm,
+                                  getattr(torch, dt))
+            n0 = bn.paired_reduce_cuda.launches
+            res[norm] = _resnet_step0(torch, resnet, model, sub)
+            res[norm + "_launches"] = bn.paired_reduce_cuda.launches - n0
+            del model
+        (lp, gp, sp), (lf, gf, sf) = res["pallas"], res["flax"]
+        rel = {n: ((gp[n].float() - gf[n].float()).norm()
+                   / gf[n].float().norm().clamp_min(1e-30)).item()
+               for n in gf}
+        worst = max(rel, key=rel.get)
+        whole = (torch.cat([(gp[n].float() - gf[n].float()).flatten()
+                            for n in gf]).norm()
+                 / torch.cat([gf[n].float().flatten() for n in gf]).norm()
+                 ).item()
+        atol, rtol = tol["stats"]
+        stat_err = {n: ((sp[n] - sf[n]).abs()
+                        / (atol + rtol * sf[n].abs())).max().item()
+                    for n in sf}
+        worst_s = max(stat_err, key=stat_err.get)
+        line = (f"resnet50 s2d B={bsz} {dt} step 0, pallas (B4) against "
+                f"flax: loss {lp:.6f} / {lf:.6f} |diff| {abs(lp - lf):.3g} "
+                f"(tol {tol['loss']}); {len(rel)} leaves, worst "
+                f"|g_pallas-g_flax|/|g_flax| {rel[worst]:.3g} at {worst}, "
+                f"mean {sum(rel.values()) / len(rel):.3g} (tol "
+                f"{tol['grad']}), all leaves as one vector {whole:.3g} (tol "
+                f"{tol['whole']}); running stats worst {worst_s} at "
+                f"{stat_err[worst_s]:.3g} of tol {atol} + {rtol}|flax|; "
+                f"B4 launches {res['pallas_launches']}, flax "
+                f"{res['flax_launches']}")
+        check(np.isfinite(lp) and abs(lp - lf) <= tol["loss"]
+              and rel[worst] <= tol["grad"] and whole <= tol["whole"]
+              and stat_err[worst_s] <= 1.0
+              and res["pallas_launches"] == 106
+              and res["flax_launches"] == 0, line)
+        print(line)
+        del res, gp, gf, sp, sf
+
+    # The step: launches and copies per step, a falling loss, images/s.
+    ips = {}
+    for norm in ("pallas", "flax", "bf16stats"):
+        model = _resnet_model(torch, resnet, state, norm, torch.bfloat16)
+        params = dict(model.named_parameters())
+        opt = torch.optim.SGD(dp.tree_leaves(params), lr=0.1, momentum=0.9)
+        with torch.enable_grad():
+            step = dp.make_train_step(resnet.make_loss_fn(model), opt, group)
+            per_step, losses = [], []
+            for _ in range(2):
+                n0 = (bn.paired_reduce_cuda.launches,
+                      bn.paired_reduce_cuda.copies)
+                losses += _timed_steps(torch, step, params, batch, 1)[0]
+                per_step.append((bn.paired_reduce_cuda.launches - n0[0],
+                                 bn.paired_reduce_cuda.copies - n0[1]))
+            more, sec = _timed_steps(torch, step, params, batch, 3)
+            losses += more
+            ips[norm] = B / sec
+            line = (f"train resnet50 s2d B={B} bf16 norm={norm}, "
+                    f"make_train_step over NCCL world size {group.size()}, "
+                    f"SGD(0.1, 0.9): losses {[round(v, 5) for v in losses]}"
+                    f", B4 (launches, copies) per step {per_step}")
+            want = 106 if norm == "pallas" else 0
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+                  and all(n == want for n, _ in per_step), line)
+            print(line)
+            flops = 3 * 2 * macs_per_image * B / sec
+            print(f"time train resnet50 s2d B={B} bf16 norm={norm}: "
+                  f"{sec * 1e3:.2f} ms/step, {ips[norm]:.1f} images/s, "
+                  f"{flops / 1e12:.1f} model TFLOP/s (3 x 2 flops per "
+                  f"multiply-add of the forward's {macs_per_image / 1e9:.3f}"
+                  f" G per image) (3 steps)")
+            if norm == "pallas":
+                kern, wall = profile_line(
+                    torch, f"train resnet50 B={B} bf16 pallas step",
+                    lambda: step(params, batch))
+                b4 = sum(e.device_time_total for e in kern
+                         if "paired_" in e.key) / 1e3
+                busy = sum(e.device_time_total for e in kern) / 1e3
+                print(f"profile train resnet50 pallas: B4 (partial + "
+                      f"finalize kernels) {b4:.3f} ms of {busy:.1f} ms "
+                      f"device time ({b4 / max(busy, 1e-9):.1%})")
+        del model, params, opt, step
+        torch.cuda.empty_cache()
+
+    fn, args = graft_entry.entry()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    line = (f"entry(): ResNet-50 eval forward on 8x128x128x3 ones: logits "
+            f"{list(logits.shape)} {logits.dtype}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+    check(logits.shape == (8, 1000) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), line)
+    print(line)
+    return ips
+
+
 def main():
     import torch
 
@@ -701,15 +1050,18 @@ def main():
         return 2
     import torch.distributed as dist
 
-    from horovod_tpu_torch import _build
+    from horovod_tpu_torch import _build, graft_entry
     from horovod_tpu_torch import parallel as dp
+    from horovod_tpu_torch.models import resnet
     from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.serving import kv_cache, loop
 
     counters = {"flash_fwd": fa.flash_fwd_cuda,
                 "flash_bwd_dq": fa.flash_bwd_dq_cuda,
-                "flash_bwd_dkv": fa.flash_bwd_dkv_cuda}
+                "flash_bwd_dkv": fa.flash_bwd_dkv_cuda,
+                "paired_reduce": bn.paired_reduce_cuda}
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
@@ -728,39 +1080,50 @@ def main():
     worst = dict(worst_bwd, flash_fwd=worst_fwd)
     timings = {**timings_bwd, **{("flash_fwd", s): t
                                  for s, t in timings.items()}}
+    bn_shapes, macs = resnet_layout(torch, resnet, 128, 224)
+    worst["paired_reduce"], timings["paired_reduce"] = phase_kernel_b4(
+        torch, bn, spec, bn_shapes)
 
     cfg = tfm.bert_large()
     params = tfm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    launches = dict.fromkeys(counters, 0)
 
-    for fn in counters.values():        # the serving path starts here
-        fn.launches = 0
-    longctx = phase_forward(torch, tfm, fa, params, cfg)
-    phase_serve(torch, tfm, loop, kv_cache, params, cfg)
-    served = {k: fn.launches for k, fn in counters.items()}   # ... ends
-    print(f"launches on the serving path: {served}")
-    check(served["flash_fwd"] > 0, "the serving path never launched "
-          "flash_fwd")
+    def run_path(name, fn, needs):
+        """``fn()`` with every launch count set to 0 just before; checks
+        that it launched each kernel of ``needs``; returns the counts."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        ran = {k: c.launches for k, c in counters.items()}
+        print(f"launches on the {name} path: {ran}")
+        for k in needs:
+            check(ran[k] > 0, f"the {name} path never launched {k}")
+        return ran, out
 
+    def serving():
+        longctx = phase_forward(torch, tfm, fa, params, cfg)
+        phase_serve(torch, tfm, loop, kv_cache, params, cfg)
+        return longctx
+
+    served, longctx = run_path("serving", serving, ["flash_fwd"])
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
-        for fn in counters.values():    # the training path starts here
-            fn.launches = 0
-        phase_train(torch, tfm, fa, dp, params, cfg, dist.group.WORLD,
-                    longctx)
-        trained = {k: fn.launches for k, fn in counters.items()}  # ... ends
+        trained, _ = run_path("training", lambda: phase_train(
+            torch, tfm, fa, dp, params, cfg, dist.group.WORLD, longctx),
+            ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+        del params, longctx               # bert-large leaves the card
+        torch.cuda.empty_cache()
+        resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
+            torch, resnet, bn, dp, graft_entry, dist.group.WORLD,
+            macs // 128), ["paired_reduce"])
     finally:
         dist.destroy_process_group()
-    print(f"launches on the training path: {trained}")
-    for k in counters:
-        check(trained[k] > 0, f"the training path never launched {k}")
-        launches[k] = served[k] + trained[k]
+    launches = {k: served[k] + trained[k] + resnet_ran[k] for k in counters}
 
     kernels = []
     for k in KERNELS:
-        t = timings[k["name"], (8, 512, 16, 64)]
+        t = timings.get(k["name"]) or timings[k["name"], (8, 512, 16, 64)]
         kernels.append(dict(k, launches=launches[k["name"]],
                             max_abs_err=worst[k["name"]], ms=t["ms"],
                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

@@ -19,14 +19,12 @@ within 1e-5.
 """
 
 import dataclasses
-import threading
 
 import jax
 import numpy as np
 import optax
 import pytest
 import torch
-import torch.distributed as dist
 from jax.sharding import Mesh
 
 torch.set_num_threads(1)
@@ -41,6 +39,8 @@ from horovod_tpu_torch.parallel import (  # noqa: E402
     bucket_plan, make_train_step, replicate, shard_batch,
     tree_flatten_with_path, tree_leaves)
 
+from .torch_train_parity import run_ranks  # noqa: E402
+
 JCFG = dataclasses.replace(jtfm.tiny(), dtype="float32", attn_impl="gather")
 TCFG = dataclasses.replace(ttfm.tiny(), dtype="float32", attn_impl="gather")
 TOKENS = np.random.default_rng(30).integers(0, 256, (4, 17), dtype=np.int32)
@@ -50,31 +50,6 @@ TOKENS = np.random.default_rng(30).integers(0, 256, (4, 17), dtype=np.int32)
 def jax_params():
     return jax.jit(jtfm.init_params, static_argnums=1)(
         jax.random.PRNGKey(3), jtfm.tiny())
-
-
-def _run_ranks(n, fn, timeout=60.0):
-    """fn(group, rank) on n threads, one ProcessGroupGloo each over a
-    shared HashStore; returns the results in rank order."""
-    store = dist.HashStore()
-    out, errs = [None] * n, [None] * n
-
-    def target(rank):
-        try:
-            out[rank] = fn(dist.ProcessGroupGloo(store, rank, n), rank)
-        except BaseException as e:  # re-raised in the test's thread
-            errs[rank] = e
-
-    threads = [threading.Thread(target=target, args=(r,), daemon=True)
-               for r in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout)
-    assert not any(t.is_alive() for t in threads), "a rank did not finish"
-    for e in errs:
-        if e is not None:
-            raise e
-    return out
 
 
 def _port_train(jax_params, group, steps=1, **kw):
@@ -124,7 +99,7 @@ def _assert_close(got, want, atol):
 def test_two_ranks_equal_one_process_and_jax(jax_params, accum_steps,
                                              bucket_bytes):
     kw = dict(accum_steps=accum_steps, bucket_bytes=bucket_bytes)
-    ranks = _run_ranks(2, lambda g, r: _port_train(jax_params, g, **kw))
+    ranks = run_ranks(2, lambda g, r: _port_train(jax_params, g, **kw))
     _assert_close(ranks[1], ranks[0], atol=0)         # replicas stay equal
     single = _port_train(jax_params, None, **kw)
     _assert_close(ranks[0], single, atol=1e-6)
@@ -137,7 +112,7 @@ def test_bf16_wire_cast_equals_jax(jax_params):
     the bf16 rounding of the mean moves the params by no more than the
     float32 case's tolerance)."""
     kw = dict(bucket_bytes=16 << 10)
-    ranks = _run_ranks(2, lambda g, r: _port_train(
+    ranks = run_ranks(2, lambda g, r: _port_train(
         jax_params, g, compression=compression.Compression.bf16, **kw))
     _assert_close(ranks[0], _jax_train(
         jax_params, compression=jax_compression.Compression.bf16, **kw),
@@ -222,13 +197,13 @@ def test_replicate_and_shard_batch():
         batch = shard_batch({"x": torch.arange(8).reshape(4, 2)}, group)
         return tree, batch
 
-    for tree, batch in _run_ranks(2, body):
+    for tree, batch in run_ranks(2, body):
         assert torch.equal(tree["a"], torch.zeros(3))
         assert torch.equal(tree["b"][0], torch.arange(4.0))
-    assert torch.equal(_run_ranks(2, body)[1][1]["x"],
+    assert torch.equal(run_ranks(2, body)[1][1]["x"],
                        torch.tensor([[4, 5], [6, 7]]))
     with pytest.raises(ValueError, match="divisible by the group size"):
-        _run_ranks(2, lambda g, r: shard_batch({"x": torch.zeros(3)}, g))
+        run_ranks(2, lambda g, r: shard_batch({"x": torch.zeros(3)}, g))
 
 
 @pytest.mark.parametrize("bucket_bytes", [0, 16 << 10])

@@ -17,6 +17,8 @@ import torch
 torch.set_num_threads(1)
 
 from horovod_tpu_torch.device import resolve_device  # noqa: E402
+from horovod_tpu_torch.graft_entry import entry  # noqa: E402
+from horovod_tpu_torch.models import resnet  # noqa: E402
 from horovod_tpu_torch.models import transformer as tfm  # noqa: E402
 from horovod_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from horovod_tpu_torch.serving import kv_cache  # noqa: E402
@@ -64,11 +66,19 @@ def _entry_points(device):
         "make_cache": lambda: kv_cache.make_cache(cfg, geo, **kw),
         "ServeLoop": lambda: ServeLoop(cpu_params, cfg, geo=geo,
                                        max_batch=2, **kw),
+        "create_train_state": lambda: resnet.create_train_state(
+            gen, image_size=32, num_classes=10,
+            model=resnet.ResNet((1, 1, 1, 1), num_classes=10, num_filters=8,
+                                device=device or "cpu"), **kw),
+        "entry": lambda: entry(**kw),
     }
 
 
-@pytest.mark.parametrize("name", ["init_params", "params_from_jax",
-                                  "make_cache", "ServeLoop"])
+ENTRY_POINTS = ["init_params", "params_from_jax", "make_cache", "ServeLoop",
+                "create_train_state", "entry"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_default_to_cuda(name):
     call = _entry_points(None)[name]
     if torch.cuda.is_available():
@@ -79,14 +89,21 @@ def test_entry_points_default_to_cuda(name):
             call()
 
 
-@pytest.mark.parametrize("name", ["init_params", "params_from_jax",
-                                  "make_cache", "ServeLoop"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_run_on_cpu_when_asked(name):
     out = _entry_points("cpu")[name]()
     if isinstance(out, ServeLoop):
         assert out.cache["k"].device.type == "cpu"
         summary, finished = out.run([])
         assert summary["requests"] == 0 and finished == []
+    elif isinstance(out, torch.nn.Module):
+        assert all(t.device.type == "cpu"
+                   for t in list(out.parameters()) + list(out.buffers()))
+    elif name == "entry":
+        fn, args = out
+        logits = fn(*args)
+        assert logits.shape == (8, 1000) and logits.dtype == torch.float32
+        assert bool(torch.isfinite(logits).all())
     else:
         assert all(t.device.type == "cpu" for t in _leaves(out))
 
