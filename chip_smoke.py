@@ -8,14 +8,17 @@ Phases (each prints its lines; any failure exits non-zero):
 
 0. the card's name and power limit; build the CUDA kernels from
    horovod_tpu_torch/csrc (one nvcc per source, all started together);
-1. kernel: the flash forward (csrc/flash_fwd.cu, B1) and backward
-   (csrc/flash_bwd.cu: dQ, B2; dK/dV, B3) against their plain PyTorch
-   versions on the card, at the main path's shapes plus ragged S and
-   head dim 128, in bf16 and f32, modes none/diag/strict, with a random
-   dO and a nonzero LSE cotangent through autograd, and the fully
-   masked row under strict; times of the kernels, the plain versions and
-   torch's scaled_dot_product_attention forward and backward (a
-   yardstick only; the port never calls it) beside the card's bound;
+1. kernel: the flash forward (csrc/flash_fwd.cu, B1: every variant
+   that takes a case, the TMA/wgmma kernel and the mma.sync one in bf16,
+   the FMA one in f32) and backward (csrc/flash_bwd.cu: dQ, B2; dK/dV,
+   B3) against their plain PyTorch versions on the card, at the main
+   path's shapes plus ragged S and head dim 128, in bf16 and f32, modes
+   none/diag/strict, with a random dO and a nonzero LSE cotangent
+   through autograd, and the fully masked row under strict; device times
+   (CUDA graph replays) of the kernels, both bf16 B1 variants in turns,
+   and of torch's scaled_dot_product_attention forward and backward (a
+   yardstick only; the port never calls it), beside a call's time from
+   Python, the plain versions' and the card's bound;
 2. forward: bert-large ``forward`` with attn_impl="flash" against
    "gather" (B=8, S=512, bf16 and f32), the kernel's launch count per
    forward, and the long-context eval loss (S=4096, loss_chunk=2048)
@@ -61,11 +64,22 @@ import time
 
 import numpy as np
 
+# B1 has two bf16 kernels (ops/flash_attention.py _FWD_VARIANTS):
+# "flash_fwd" is the TMA/wgmma one that every bf16 call of the main paths
+# takes (its launches are all of B1's, by variant beside them);
+# "flash_fwd_mma" is the mma.sync one, which takes the other bf16 calls.
 KERNELS = [{
     "name": "flash_fwd",
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
     "replaces": "horovod_tpu/ops/pallas_attention.py:83",
+    "variant": "tma",
+}, {
+    "name": "flash_fwd_mma",
+    "route": "cuda",
+    "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
+    "replaces": "horovod_tpu/ops/pallas_attention.py:83",
+    "variant": "mma",
 }, {
     "name": "flash_bwd_dq",
     "route": "cuda",
@@ -194,8 +208,8 @@ def ptxas_summary(log):
                       ln)
         if m:
             args = m[2] or ""
-            args = re.fullmatch(r"Li(\d+)", args)[1] \
-                if re.fullmatch(r"Li(\d+)", args) else args
+            args = re.fullmatch(r"Li(\d+)E?", args)[1] \
+                if re.fullmatch(r"Li(\d+)E?", args) else args
             name = f"{m[1]}<{args}>" if args else m[1]
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -221,18 +235,20 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(torch, fn, reps):
+def graph_ms(torch, fn, reps, stream=None):
     """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
     graph and replayed, timed with CUDA events, so the host's cost of a
-    call (Python, ctypes, allocation) drops out."""
-    stream = torch.cuda.Stream()
+    call (Python, ctypes, allocation) drops out. ``stream`` is the one to
+    capture on (a new one by default); a backward through autograd is
+    captured on the stream its forward ran on."""
+    stream = stream or torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -383,65 +399,82 @@ def phase_kernel_bwd(torch, fa, spec):
         delta = _delta(o, do, torch.zeros_like(lse))
         args = (q, k, v, do, lse, delta, "diag", D ** -0.5)
         block = fa._validate(q, k, v, 512)
-        with torch.enable_grad():
+        # SDPA's forward runs on the stream its backward is captured on.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.enable_grad():
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                           for x in (q, k, v))
             out = sdpa(qt, kt, vt, is_causal=True)
+        torch.cuda.current_stream().wait_stream(side)
         dot = do.transpose(1, 2)
         reps = 20 if S == 512 else 10
         plain_ms = time_ms(torch, lambda: fa._flash_bwd_plain(
             q, k, v, o, lse, do, delta, "diag", D ** -0.5, block), reps)
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), reps)
+        library_ms = graph_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps, stream=side)
         for kern, fn in (("flash_bwd_dq", fa.flash_bwd_dq_cuda),
                          ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda)):
-            t = {"ms": time_ms(torch, lambda fn=fn: fn(*args), reps),
+            t = {"ms": graph_ms(torch, lambda fn=fn: fn(*args), reps),
+                 "call_ms": time_ms(torch, lambda fn=fn: fn(*args), reps),
                  "plain_ms": plain_ms, "library_ms": library_ms}
             t["bound_ms"], t["bound_by"] = bwd_bound_ms(
                 shape, "bfloat16", "diag", kern, spec)
             timings[kern, shape] = t
             print(f"time {kern} {list(shape)} bf16 diag: kernel "
-                  f"{t['ms']:.4f} ms, plain (dq, dk, dv together) "
-                  f"{plain_ms:.4f} ms, sdpa backward (dq, dk, dv together) "
-                  f"{library_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']}, {spec[0]} peaks)")
+                  f"{t['ms']:.4f} ms (a call from Python {t['call_ms']:.4f}"
+                  f" ms), plain (dq, dk, dv together) {plain_ms:.4f} ms, "
+                  f"sdpa backward (dq, dk, dv together) {library_ms:.4f} ms,"
+                  f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                  f"{spec[0]} peaks)")
         del out
     return worst, timings
 
 
 def phase_kernel(torch, fa, spec):
+    """B1 against _flash_plain through every variant that takes each case
+    (the default pick, _fwd_variant, must be "tma" for every bf16 case
+    here); then both bf16 variants timed in turns. Returns the worst
+    |O - plain| at the main path's shape per kernel, and the timings."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     cases = [(s, d, m) for s in [(8, 512, 16, 64), (1, 4096, 16, 64),
                                  (3, 1000, 16, 64), (2, 333, 4, 128)]
              for d in dts for m in fa.MODES]
-    worst = 0.0
+    names = {k["variant"]: k["name"] for k in KERNELS if "variant" in k}
+    worst = dict.fromkeys(names.values(), 0.0)
     for shape, dname, mode in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    .to(dts[dname]) for _ in range(3))
         scale = shape[-1] ** -0.5
-        o, lse = fa.flash_attention_lse(q, k, v, mode=mode, block=512)
-        torch.cuda.synchronize()
         po, plse = fa._flash_plain(q, k, v, mode, scale,
                                    fa._validate(q, k, v, 512))
+        pick = fa._fwd_variant(q, k, v)
+        check(pick == ("tma" if dname == "bfloat16" else "fma"),
+              f"flash_fwd {list(shape)} {dname} would take {pick!r}")
         atol, rtol = TOL_O[dname]
-        diff = (o.float() - po.float()).abs()
-        err_o = diff.max().item()
-        within = bool((diff <= atol + rtol * po.float().abs()).all())
-        err_l = (lse - plse).abs().max().item()
-        line = (f"kernel flash_fwd {list(shape)} {dname} {mode}: "
-                f"max|O-plain| {err_o:.3g} (tol {atol} + {rtol}|O|: "
-                f"{'ok' if within else 'FAIL'}) max|LSE-plain| {err_l:.3g} "
-                f"(tol {TOL_LSE})")
-        check(within and err_l <= TOL_LSE, line)
-        if mode == "strict":   # row 0 sees no key
-            check(bool((o[:, 0] == 0).all())
-                  and bool((lse[:, :, 0] == fa.NEG_INF).all()),
-                  f"{line}: masked row 0 is not O=0, LSE=-1e30")
-            line += "; masked row 0: O=0, LSE=-1e30"
-        print(line)
-        if shape == (8, 512, 16, 64) and dname == "bfloat16":
-            worst = max(worst, err_o)
+        for var in (x for x in fa._FWD_VARIANTS
+                    if fa._fwd_takes(x, q, k, v)):
+            o, lse = fa.flash_fwd_cuda(q, k, v, mode, scale, variant=var)
+            torch.cuda.synchronize()
+            diff = (o.float() - po.float()).abs()
+            err_o = diff.max().item()
+            within = bool((diff <= atol + rtol * po.float().abs()).all())
+            err_l = (lse - plse).abs().max().item()
+            line = (f"kernel flash_fwd[{var}] {list(shape)} {dname} {mode}:"
+                    f" max|O-plain| {err_o:.3g} (tol {atol} + {rtol}|O|: "
+                    f"{'ok' if within else 'FAIL'}) max|LSE-plain| "
+                    f"{err_l:.3g} (tol {TOL_LSE})")
+            check(within and err_l <= TOL_LSE, line)
+            if mode == "strict":   # row 0 sees no key
+                check(bool((o[:, 0] == 0).all())
+                      and bool((lse[:, :, 0] == fa.NEG_INF).all()),
+                      f"{line}: masked row 0 is not O=0, LSE=-1e30")
+                line += "; masked row 0: O=0, LSE=-1e30"
+            print(line)
+            if shape == (8, 512, 16, 64) and var in names:
+                worst[names[var]] = max(worst[names[var]], err_o)
+        del q, k, v, po, plse
 
     timings = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -449,23 +482,32 @@ def phase_kernel(torch, fa, spec):
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         block = fa._validate(q, k, v, 512)
+        scale = shape[-1] ** -0.5
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         reps = 50 if shape[1] == 512 else 20
-        t = {
-            "ms": time_ms(torch, lambda: fa.flash_attention_lse(
-                q, k, v, mode="diag"), reps),
-            "plain_ms": time_ms(torch, lambda: fa._flash_plain(
-                q, k, v, "diag", 0.125, block), reps),
-            "library_ms": time_ms(torch, lambda: sdpa(
-                qt, kt, vt, is_causal=True), reps),
-        }
-        t["bound_ms"], t["bound_by"] = flash_bound_ms(shape, "bfloat16",
-                                                      "diag", spec)
-        timings[shape] = t
-        print(f"time flash_fwd {list(shape)} bf16 diag: kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}, {spec[0]} peaks)")
+        plain_ms = time_ms(torch, lambda: fa._flash_plain(
+            q, k, v, "diag", scale, block), reps)
+        library_ms = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
+                              reps)
+        bound = flash_bound_ms(shape, "bfloat16", "diag", spec)
+        runs = {var: [] for var in names}
+        for var in ("tma", "mma", "mma", "tma"):   # in turns
+            runs[var].append(graph_ms(torch, lambda var=var: fa.flash_fwd_cuda(
+                q, k, v, "diag", scale, variant=var), reps))
+        for var, name in names.items():
+            t = {"ms": sum(runs[var]) / len(runs[var]),
+                 "call_ms": time_ms(torch, lambda var=var: fa.flash_fwd_cuda(
+                     q, k, v, "diag", scale, variant=var), reps),
+                 "plain_ms": plain_ms, "library_ms": library_ms}
+            t["bound_ms"], t["bound_by"] = bound
+            timings[name, shape] = t
+            print(f"time flash_fwd[{var}] {list(shape)} bf16 diag: kernel "
+                  f"{t['ms']:.4f} ms (turns {runs[var][0]:.4f} / "
+                  f"{runs[var][1]:.4f}; a call from Python "
+                  f"{t['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+                  f"{library_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}, {spec[0]} peaks), kernel at "
+                  f"{t['bound_ms'] / t['ms']:.1%} of bound")
     return worst, timings
 
 
@@ -1075,11 +1117,10 @@ def main():
     for lib in libs:
         print(f"ptxas {lib}: " + ptxas_summary(_build.build_log(lib)))
 
-    worst_fwd, timings = phase_kernel(torch, fa, spec)
+    worst, timings = phase_kernel(torch, fa, spec)
     worst_bwd, timings_bwd = phase_kernel_bwd(torch, fa, spec)
-    worst = dict(worst_bwd, flash_fwd=worst_fwd)
-    timings = {**timings_bwd, **{("flash_fwd", s): t
-                                 for s, t in timings.items()}}
+    worst.update(worst_bwd)
+    timings.update(timings_bwd)
     bn_shapes, macs = resnet_layout(torch, resnet, 128, 224)
     worst["paired_reduce"], timings["paired_reduce"] = phase_kernel_b4(
         torch, bn, spec, bn_shapes)
@@ -1088,16 +1129,26 @@ def main():
     params = tfm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
 
+    by_variant = fa.flash_fwd_cuda.variant_launches
+
     def run_path(name, fn, needs):
         """``fn()`` with every launch count set to 0 just before; checks
-        that it launched each kernel of ``needs``; returns the counts."""
+        that it launched each kernel of ``needs``, and every bf16 B1
+        launch on the TMA/wgmma kernel; returns the counts."""
         for c in counters.values():
             c.launches = 0
+        for var in by_variant:
+            by_variant[var] = 0
         out = fn()
         ran = {k: c.launches for k, c in counters.items()}
+        ran["flash_fwd by variant"] = dict(by_variant)
         print(f"launches on the {name} path: {ran}")
         for k in needs:
             check(ran[k] > 0, f"the {name} path never launched {k}")
+        if "flash_fwd" in needs:
+            check(by_variant["tma"] > 0 and by_variant["mma"] == 0,
+                  f"the {name} path sent bf16 B1 launches past the "
+                  f"TMA/wgmma kernel: {by_variant}")
         return ran, out
 
     def serving():
@@ -1119,16 +1170,23 @@ def main():
             macs // 128), ["paired_reduce"])
     finally:
         dist.destroy_process_group()
-    launches = {k: served[k] + trained[k] + resnet_ran[k] for k in counters}
+    paths = (served, trained, resnet_ran)
+    launches = {k: sum(r[k] for r in paths) for k in counters}
+    fwd_by = {var: sum(r["flash_fwd by variant"][var] for r in paths)
+              for var in by_variant}
+    launches["flash_fwd_mma"] = fwd_by["mma"]
 
     kernels = []
     for k in KERNELS:
         t = timings.get(k["name"]) or timings[k["name"], (8, 512, 16, 64)]
-        kernels.append(dict(k, launches=launches[k["name"]],
-                            max_abs_err=worst[k["name"]], ms=t["ms"],
-                            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                            bound_by=t["bound_by"],
-                            library_ms=t["library_ms"]))
+        extra = {"launches_by_variant": fwd_by} \
+            if k["name"] == "flash_fwd" else {}
+        kernels.append(dict(
+            {f: k[f] for f in ("name", "route", "source", "replaces")},
+            launches=launches[k["name"]], max_abs_err=worst[k["name"]],
+            ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], **extra))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ custom_vjp: a call that needs a gradient goes through
 Two implementations of each pass live here:
 
 - the kernels, hand-written for sm_90a: ``csrc/flash_fwd.cu`` (the
-  reference's ``_fwd_kernel``) and ``csrc/flash_bwd.cu`` (its
+  reference's ``_fwd_kernel``; three variants, picked by
+  :func:`_fwd_variant`) and ``csrc/flash_bwd.cu`` (its
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), which a tensor on a CUDA
   device always goes to;
 - the plain PyTorch versions, :func:`_flash_plain` and
@@ -210,15 +211,60 @@ def _check_launch(lib, fn, err, dev):
                            + lib.hvd_cuda_error_string(err).decode())
 
 
-def flash_fwd_cuda(q, k, v, mode, sm_scale):
+# B1's kernels in csrc/flash_fwd.cu, by the id its C interface takes:
+# "fma" float32 on CUDA cores, "mma" bf16 through mma.sync (the PR 3
+# kernel), "tma" bf16 through TMA, mbarriers and wgmma.
+_FWD_VARIANTS = {"fma": 0, "mma": 1, "tma": 2}
+
+
+def _aligned16(t):
+    """Every [B, S, H] row start of a bf16 ``[B, S, H, D]`` tensor on a
+    16-byte boundary: the pointer and the B, S and H strides."""
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0
+                                          for i in range(3))
+
+
+def _fwd_takes(variant, q, k, v):
+    """Whether B1's ``variant`` takes q, k, v (one dtype, D <= 128, unit
+    last stride, as :func:`flash_fwd_cuda` has checked)."""
+    if variant == "fma":
+        return q.dtype == torch.float32
+    if variant == "mma":
+        return q.dtype == torch.bfloat16
+    return (variant == "tma" and q.dtype == torch.bfloat16
+            and q.shape[-1] % 8 == 0
+            and all(_aligned16(t) for t in (q, k, v)))
+
+
+def _fwd_variant(q, k, v):
+    """The B1 kernel a call takes, from dtype, shape, strides and
+    pointers alone: "tma" for bf16 with D % 8 == 0 and 16-byte aligned
+    rows (every call of the serving and training paths), "mma" for any
+    other bf16, "fma" for float32."""
+    if q.dtype == torch.float32:
+        return "fma"
+    return "tma" if _fwd_takes("tma", q, k, v) else "mma"
+
+
+def flash_fwd_cuda(q, k, v, mode, sm_scale, variant=None):
     """Launch ``csrc/flash_fwd.cu`` on the current stream. q, k, v:
-    ``[B, S, H, D]`` CUDA tensors (bf16 or f32, D <= 128, last stride 1).
-    Returns (o [B,S,H,D], lse [B,H,S] float32). Counts each launch in
-    ``flash_fwd_cuda.launches``."""
+    ``[B, S, H, D]`` CUDA tensors (bf16 or f32, D <= 128). ``variant``
+    names the kernel (:data:`_FWD_VARIANTS`); by default
+    :func:`_fwd_variant` picks it, and a named one that does not take the
+    arguments raises before any launch. Returns (o [B,S,H,D],
+    lse [B,H,S] float32). Counts each launch in
+    ``flash_fwd_cuda.launches`` and, by variant, in
+    ``flash_fwd_cuda.variant_launches``."""
     _check_args("flash_fwd", q, k, v)
     B, S, H, D = q.shape
     dev = q.device
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if variant is None:
+        variant = _fwd_variant(q, k, v)
+    elif variant not in _FWD_VARIANTS or not _fwd_takes(variant, q, k, v):
+        raise ValueError(f"flash_fwd variant {variant!r} does not take "
+                         f"{q.dtype} q/k/v of shape {tuple(q.shape)}, "
+                         f"strides {q.stride()} {k.stride()} {v.stride()}")
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     lib = _lib("flash_fwd")
@@ -226,15 +272,17 @@ def flash_fwd_cuda(q, k, v, mode, sm_scale):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hvd_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), lse.data_ptr(),
-                                _DTYPE_ID[q.dtype], B, S, H, D,
+                                _FWD_VARIANTS[variant], B, S, H, D,
                                 *_bhs(q, k, v), float(sm_scale),
                                 _MODE_ID[mode], stream)
     _check_launch(lib, "flash_fwd", err, dev)
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.variant_launches[variant] += 1
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.variant_launches = dict.fromkeys(_FWD_VARIANTS, 0)
 
 
 def _bwd_args(q, k, v, do, lse, delta):
@@ -310,8 +358,9 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, mode, sm_scale):
     return dq, dk, dv
 
 
-# ctypes signatures: pointers, then ints (dtype, B, S, H, D), the
-# B/S/H strides of each [B, S, H, D] input, sm_scale, mode, stream.
+# ctypes signatures: pointers, then ints (the forward's variant or the
+# backward's dtype; B, S, H, D), the B/S/H strides of each [B, S, H, D]
+# input, sm_scale, mode, stream.
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": (5, 3)},
     "flash_bwd": {"hvd_flash_bwd_dq": (7, 4), "hvd_flash_bwd_dkv": (8, 4)},
