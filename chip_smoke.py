@@ -8,17 +8,22 @@ Phases (each prints its lines; any failure exits non-zero):
 
 0. the card's name and power limit; build the CUDA kernels from
    horovod_tpu_torch/csrc (one nvcc per source, all started together);
-1. kernel: the flash forward (csrc/flash_fwd.cu, B1: every variant
-   that takes a case, the TMA/wgmma kernel and the mma.sync one in bf16,
-   the FMA one in f32) and backward (csrc/flash_bwd.cu: dQ, B2; dK/dV,
-   B3) against their plain PyTorch versions on the card, at the main
-   path's shapes plus ragged S and head dim 128, in bf16 and f32, modes
-   none/diag/strict, with a random dO and a nonzero LSE cotangent
-   through autograd, and the fully masked row under strict; device times
-   (CUDA graph replays) of the kernels, both bf16 B1 variants in turns,
-   and of torch's scaled_dot_product_attention forward and backward (a
-   yardstick only; the port never calls it), beside a call's time from
-   Python, the plain versions' and the card's bound;
+   each kernel's registers and spills from ptxas, and its local-memory
+   loads and stores (LDL/STL) from cuobjdump -sass: no TMA backward
+   kernel may have any;
+1. kernel: the flash forward (csrc/flash_fwd.cu, B1) and backward
+   (csrc/flash_bwd.cu: dQ, B2; dK/dV, B3), each through every variant
+   that takes a case (the TMA/wgmma kernel and the mma.sync one in bf16,
+   the FMA one in f32), against their plain PyTorch versions on the
+   card, at the main path's shapes plus ragged S and head dim 128 (the
+   backward also at head dims 32 and 96), in bf16 and f32, modes none/diag/strict; the backward also through
+   autograd with a random dO and a nonzero LSE cotangent, and the TMA
+   backward kernels twice for the same bits; the fully masked row under
+   strict; device times (CUDA graph replays) of the kernels, both bf16
+   variants of each in turns, of torch's scaled_dot_product_attention
+   forward and backward (a yardstick only; the port never calls it) and
+   of the torch ops that make the backward's delta, beside a call's time
+   from Python, the plain versions' and the card's bound;
 2. forward: bert-large ``forward`` with attn_impl="flash" against
    "gather" (B=8, S=512, bf16 and f32), the kernel's launch count per
    forward, and the long-context eval loss (S=4096, loss_chunk=2048)
@@ -50,11 +55,13 @@ plain version and torch's own batch-norm reductions (yardsticks only).
 
 Phases 2-3 (serving), 4 (training) and 5 (ResNet training) are the main
 paths: each starts with every kernel's launch count at 0 and must launch
-the kernels it runs. Exits with code 2, printing no result, when no CUDA
-device is present.
+the kernels it runs, every bf16 launch of B1, B2 and B3 on its TMA/wgmma
+kernel. Exits with code 2, printing no result, when no CUDA device is
+present.
 """
 
 import dataclasses
+import faulthandler
 import json
 import os
 import re
@@ -64,38 +71,72 @@ import time
 
 import numpy as np
 
-# B1 has two bf16 kernels (ops/flash_attention.py _FWD_VARIANTS):
-# "flash_fwd" is the TMA/wgmma one that every bf16 call of the main paths
-# takes (its launches are all of B1's, by variant beside them);
-# "flash_fwd_mma" is the mma.sync one, which takes the other bf16 calls.
+# B1, B2 and B3 each have two bf16 kernels (ops/flash_attention.py
+# _FWD_VARIANTS, _BWD_VARIANTS), picked per call by a wrapper: the
+# TMA/wgmma one ("tma") takes every bf16 call of the main paths and is
+# named after its wrapper (its launches are all of the wrapper's, by
+# variant beside them); the mma.sync one ("mma", "<wrapper>_mma") takes
+# the other bf16 calls.
 KERNELS = [{
     "name": "flash_fwd",
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
     "replaces": "horovod_tpu/ops/pallas_attention.py:83",
+    "wrapper": "flash_fwd",
     "variant": "tma",
 }, {
     "name": "flash_fwd_mma",
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
     "replaces": "horovod_tpu/ops/pallas_attention.py:83",
+    "wrapper": "flash_fwd",
     "variant": "mma",
 }, {
     "name": "flash_bwd_dq",
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
     "replaces": "horovod_tpu/ops/pallas_attention.py:130",
+    "wrapper": "flash_bwd_dq",
+    "variant": "tma",
+}, {
+    "name": "flash_bwd_dq_mma",
+    "route": "cuda",
+    "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
+    "replaces": "horovod_tpu/ops/pallas_attention.py:130",
+    "wrapper": "flash_bwd_dq",
+    "variant": "mma",
 }, {
     "name": "flash_bwd_dkv",
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
     "replaces": "horovod_tpu/ops/pallas_attention.py:166",
+    "wrapper": "flash_bwd_dkv",
+    "variant": "tma",
+}, {
+    "name": "flash_bwd_dkv_mma",
+    "route": "cuda",
+    "source": "horovod_tpu_torch/csrc/flash_bwd.cu",
+    "replaces": "horovod_tpu/ops/pallas_attention.py:166",
+    "wrapper": "flash_bwd_dkv",
+    "variant": "mma",
 }, {
     "name": "paired_reduce",
     "route": "cuda",
     "source": "horovod_tpu_torch/csrc/paired_reduce.cu",
     "replaces": "horovod_tpu/ops/pallas_norm.py:62",
+    "wrapper": "paired_reduce",
 }]
+# The wrappers whose kernels come in variants, and their launch counters'
+# names in ops/flash_attention.py.
+VARIANT_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def variant_names(wrapper):
+    """{variant: kernel name} of a wrapper's bf16 kernels in KERNELS."""
+    return {k["variant"]: k["name"] for k in KERNELS
+            if k["wrapper"] == wrapper and "variant" in k}
+
+
 # The shape the kernels line reports B4 at: the backward's (dy, x) over
 # ResNet-50's largest bf16 layers at B=128 (stage 1's bn3 and proj_bn).
 B4_LINE_SHAPE = (401408, 256)
@@ -198,27 +239,59 @@ def card_spec(name):
     return SPECS["H100 80GB HBM3"]
 
 
+def _kernel_name(mangled):
+    """'flash_bwd_dq_tma_kernel<64>' from a mangled kernel name, or None."""
+    m = re.search(r"\d((?:flash|paired)_\w+?_kernel)(?:I(\w+?)E)?E?v",
+                  mangled)
+    if not m:
+        return None
+    arg = re.fullmatch(r"Li(\d+)E?", m[2] or "")
+    arg = arg[1] if arg else m[2]
+    return f"{m[1]}<{arg}>" if arg else m[1]
+
+
 def ptxas_summary(log):
-    """'kernel<DP> N regs, S B spilled' per kernel, from the compiler's
-    -Xptxas -v report."""
-    out, name, spill = [], None, "?"
+    """[(kernel, registers, bytes spilled)] from the compiler's -Xptxas -v
+    report, in its order."""
+    out, name, spill = [], None, None
     for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*?\d"   # length prefix
-                      r"((?:flash|paired)_\w+?_kernel)(?:I(\w+?)E)?E?v",
-                      ln)
+        m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            args = m[2] or ""
-            args = re.fullmatch(r"Li(\d+)E?", args)[1] \
-                if re.fullmatch(r"Li(\d+)E?", args) else args
-            name = f"{m[1]}<{args}>" if args else m[1]
+            name = _kernel_name(m[1])
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
-            spill = m[1]
+            spill = int(m[1])
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name} {m[1]} regs, {spill} B spilled")
-            name, spill = None, "?"
-    return "; ".join(out)
+            out.append((name, int(m[1]), spill))
+            name, spill = None, None
+    return out
+
+
+def sass_local(path):
+    """{kernel: (local-memory loads and stores (LDL, STL), highest
+    register named)} in the machine code of the library at ``path``
+    (cuobjdump -sass): a spill compiles to LDL/STL, also where
+    setmaxnreg's budget was not applied, and the highest register shows
+    what a warpgroup's budget holds."""
+    from horovod_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = _kernel_name(m[1])
+            if name:
+                out[name] = [0, 0]
+        elif name:
+            if re.search(r"\b(?:LDL|STL)\b", ln):
+                out[name][0] += 1
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", ln)]
+            out[name][1] = max([out[name][1]] + regs)
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def time_ms(torch, fn, reps):
@@ -346,17 +419,51 @@ def _delta(o, do, dlse):
             - dlse).contiguous()
 
 
+def _bwd_check(torch, fa, label, got, plain, dname, mode):
+    """One backward result (dq, dk, dv) against the plain backward's,
+    within TOL_BWD; under strict, row 0 (which sees no key) must get
+    dQ = 0. Returns the line and each output's max error."""
+    atol, rtol = TOL_BWD[dname]
+    parts = []
+    for name, a, b in zip(("dq", "dk", "dv"), got, plain):
+        diff = (a.float() - b.float()).abs()
+        within = bool((diff <= atol + rtol * b.float().abs()).all())
+        parts.append((name, diff.max().item(), within))
+    line = (f"{label}: " + ", ".join(
+        f"max|{n}-plain| {e:.3g} ({'ok' if w else 'FAIL'})"
+        for n, e, w in parts) + f" (tol {atol} + {rtol}|plain|)")
+    check(all(w for _, _, w in parts)
+          and all(bool(torch.isfinite(t).all()) for t in got), line)
+    if mode == "strict":   # row 0 sees no key
+        check(bool((got[0][:, 0] == 0).all()),
+              f"{line}: masked row 0 has dQ != 0")
+        line += "; masked row 0: dQ=0"
+    return line, {n: e for n, e, _ in parts}
+
+
 def phase_kernel_bwd(torch, fa, spec):
-    """B2 and B3 through autograd (flash_attention_lse's _FlashFn, a random
-    dO and a nonzero dLSE) against _flash_bwd_plain on the same inputs."""
+    """B2 and B3 against _flash_bwd_plain on the same inputs: through
+    autograd (flash_attention_lse's _FlashFn, a random dO and a nonzero
+    dLSE), where the default pick (_bwd_variant) must be "tma" for every
+    bf16 case the TMA kernels take; then through every variant that takes
+    each case, called directly, the tma kernels twice for the same bits.
+    Then both bf16 variants timed in turns beside SDPA's backward and the
+    torch ops that make delta in _FlashFn.backward. Returns the worst
+    error at the main path's shape per kernel, and the timings."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    # D=32 leaves half of TMA's 64-column atom zero; D=96 fills a second
+    # atom in part, where the epilogue cuts columns past D.
     cases = [(s, d, m) for s in [(8, 512, 16, 64), (1, 4096, 16, 64),
-                                 (3, 1000, 16, 64), (2, 333, 4, 128)]
+                                 (3, 1000, 16, 64), (2, 333, 4, 128),
+                                 (2, 333, 4, 32), (2, 333, 4, 96)]
              for d in dts for m in fa.MODES]
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    fns = {"flash_bwd_dq": fa.flash_bwd_dq_cuda,
+           "flash_bwd_dkv": fa.flash_bwd_dkv_cuda}
+    worst = {n: 0.0 for w in fns for n in variant_names(w).values()}
     for shape, dname, mode in cases:
         B, S, H, D = shape
+        scale = D ** -0.5
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dts[dname]) for _ in range(4))
         dlse = torch.randn((B, H, S), generator=gen, device="cuda")
@@ -365,29 +472,42 @@ def phase_kernel_bwd(torch, fa, spec):
             o, lse = fa.flash_attention_lse(qg, kg, vg, mode=mode, block=512)
             got = torch.autograd.grad((o, lse), (qg, kg, vg), (do, dlse))
         torch.cuda.synchronize()
-        plain = fa._flash_bwd_plain(q, k, v, o.detach(), lse.detach(), do,
-                                    _delta(o.detach(), do, dlse), mode,
-                                    D ** -0.5, fa._validate(q, k, v, 512))
-        atol, rtol = TOL_BWD[dname]
-        parts = []
-        for name, a, b in zip(("dq", "dk", "dv"), got, plain):
-            diff = (a.float() - b.float()).abs()
-            err = diff.max().item()
-            within = bool((diff <= atol + rtol * b.float().abs()).all())
-            parts.append((name, err, within))
-            if shape == (8, 512, 16, 64) and dname == "bfloat16":
-                kern = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
-                worst[kern] = max(worst[kern], err)
-        line = (f"kernel flash_bwd {list(shape)} {dname} {mode}: " + ", ".join(
-            f"max|{n}-plain| {e:.3g} ({'ok' if w else 'FAIL'})"
-            for n, e, w in parts) + f" (tol {atol} + {rtol}|plain|)")
-        check(all(w for _, _, w in parts)
-              and all(bool(torch.isfinite(t).all()) for t in got), line)
-        if mode == "strict":   # row 0 sees no key
-            check(bool((got[0][:, 0] == 0).all()),
-                  f"{line}: masked row 0 has dQ != 0")
-            line += "; masked row 0: dQ=0"
+        o, lse = o.detach(), lse.detach()
+        delta = _delta(o, do, dlse)
+        plain = fa._flash_bwd_plain(q, k, v, o, lse, do, delta, mode, scale,
+                                    fa._validate(q, k, v, 512))
+        pick = fa._bwd_variant(q, k, v, do)
+        want = "fma" if dname == "float32" else "tma"
+        check(pick == want, f"flash_bwd {list(shape)} {dname} would take "
+                            f"{pick!r}, not {want!r}")
+        line, _ = _bwd_check(torch, fa, f"kernel flash_bwd[autograd: {pick}]"
+                             f" {list(shape)} {dname} {mode}", got, plain,
+                             dname, mode)
         print(line)
+        args = (q, k, v, do, lse, delta, mode, scale)
+        for var in (x for x in fa._BWD_VARIANTS
+                    if fa._bwd_takes(x, q, k, v, do)):
+            res = (fns["flash_bwd_dq"](*args, variant=var),
+                   *fns["flash_bwd_dkv"](*args, variant=var))
+            torch.cuda.synchronize()
+            line, err = _bwd_check(torch, fa, f"kernel flash_bwd[{var}] "
+                                   f"{list(shape)} {dname} {mode}", res,
+                                   plain, dname, mode)
+            if var == "tma":   # the same inputs give the same bits
+                again = (fns["flash_bwd_dq"](*args, variant=var),
+                         *fns["flash_bwd_dkv"](*args, variant=var))
+                same = all(torch.equal(a, b) for a, b in zip(res, again))
+                line += f"; two launches {'bit-equal' if same else 'DIFFER'}"
+                check(same, line)
+            print(line)
+            if shape == (8, 512, 16, 64) and dname == "bfloat16":
+                for w in fns:
+                    name = variant_names(w).get(var)
+                    e = err["dq"] if w == "flash_bwd_dq" \
+                        else max(err["dk"], err["dv"])
+                    if name:
+                        worst[name] = max(worst[name], e)
+        del q, k, v, do, o, lse, delta, got, plain
 
     timings = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -396,7 +516,8 @@ def phase_kernel_bwd(torch, fa, spec):
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
         o, lse = fa.flash_fwd_cuda(q, k, v, "diag", D ** -0.5)
-        delta = _delta(o, do, torch.zeros_like(lse))
+        dlse = torch.zeros_like(lse)
+        delta = _delta(o, do, dlse)
         args = (q, k, v, do, lse, delta, "diag", D ** -0.5)
         block = fa._validate(q, k, v, 512)
         # SDPA's forward runs on the stream its backward is captured on.
@@ -413,20 +534,43 @@ def phase_kernel_bwd(torch, fa, spec):
             q, k, v, o, lse, do, delta, "diag", D ** -0.5, block), reps)
         library_ms = graph_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), reps, stream=side)
-        for kern, fn in (("flash_bwd_dq", fa.flash_bwd_dq_cuda),
-                         ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda)):
-            t = {"ms": graph_ms(torch, lambda fn=fn: fn(*args), reps),
-                 "call_ms": time_ms(torch, lambda fn=fn: fn(*args), reps),
-                 "plain_ms": plain_ms, "library_ms": library_ms}
-            t["bound_ms"], t["bound_by"] = bwd_bound_ms(
-                shape, "bfloat16", "diag", kern, spec)
-            timings[kern, shape] = t
-            print(f"time {kern} {list(shape)} bf16 diag: kernel "
-                  f"{t['ms']:.4f} ms (a call from Python {t['call_ms']:.4f}"
-                  f" ms), plain (dq, dk, dv together) {plain_ms:.4f} ms, "
-                  f"sdpa backward (dq, dk, dv together) {library_ms:.4f} ms,"
-                  f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-                  f"{spec[0]} peaks)")
+        delta_ms = graph_ms(torch, lambda: _delta(o, do, dlse), reps)
+        runs = {}
+        for var in ("tma", "mma", "mma", "tma"):   # in turns
+            for w, fn in fns.items():
+                runs.setdefault((w, var), []).append(graph_ms(
+                    torch, lambda fn=fn, var=var: fn(*args, variant=var),
+                    reps))
+        pair = {}
+        for w, fn in fns.items():
+            for var, name in variant_names(w).items():
+                t = {"ms": sum(runs[w, var]) / len(runs[w, var]),
+                     "call_ms": time_ms(torch, lambda fn=fn, var=var: fn(
+                         *args, variant=var), reps),
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "delta_ms": delta_ms}
+                t["bound_ms"], t["bound_by"] = bwd_bound_ms(
+                    shape, "bfloat16", "diag", w, spec)
+                timings[name, shape] = t
+                pair[var] = pair.get(var, 0.0) + t["ms"]
+                print(f"time {w}[{var}] {list(shape)} bf16 diag: kernel "
+                      f"{t['ms']:.4f} ms (turns {runs[w, var][0]:.4f} / "
+                      f"{runs[w, var][1]:.4f}; a call from Python "
+                      f"{t['call_ms']:.4f} ms), plain (dq, dk, dv together) "
+                      f"{plain_ms:.4f} ms, sdpa backward (dq, dk, dv "
+                      f"together) {library_ms:.4f} ms, bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {spec[0]} "
+                      f"peaks), kernel at {t['bound_ms'] / t['ms']:.1%} of "
+                      f"bound")
+        bound = sum(bwd_bound_ms(shape, "bfloat16", "diag", w, spec)[0]
+                    for w in fns)
+        for var, ms in pair.items():
+            print(f"time flash_bwd pair[{var}] {list(shape)} bf16 diag: B2 + "
+                  f"B3 {ms:.4f} ms, with delta's torch ops ({delta_ms:.4f} "
+                  f"ms) {ms + delta_ms:.4f} ms, against sdpa backward "
+                  f"{library_ms:.4f} ms: {(ms + delta_ms) / library_ms:.2f}x"
+                  f" with delta, {ms / library_ms:.2f}x without; bound "
+                  f"{bound:.4f} ms, pair at {bound / ms:.1%} of it")
         del out
     return worst, timings
 
@@ -441,7 +585,7 @@ def phase_kernel(torch, fa, spec):
     cases = [(s, d, m) for s in [(8, 512, 16, 64), (1, 4096, 16, 64),
                                  (3, 1000, 16, 64), (2, 333, 4, 128)]
              for d in dts for m in fa.MODES]
-    names = {k["variant"]: k["name"] for k in KERNELS if "variant" in k}
+    names = variant_names("flash_fwd")
     worst = dict.fromkeys(names.values(), 0.0)
     for shape, dname, mode in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -1090,6 +1234,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # A kernel that never ends must not outlive the run's limit: dump the
+    # stacks and end the process (and with it the CUDA context).
+    faulthandler.dump_traceback_later(1100, exit=True)
     import torch.distributed as dist
 
     from horovod_tpu_torch import _build, graft_entry
@@ -1115,7 +1262,20 @@ def main():
     built = _build.build(libs)
     print(f"build: {built} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
-        print(f"ptxas {lib}: " + ptxas_summary(_build.build_log(lib)))
+        regs = ptxas_summary(_build.build_log(lib))
+        local = sass_local(_build._lib_path(lib))
+        print(f"ptxas {lib}: " + "; ".join(
+            f"{n} {r} regs at launch, {sp} B spilled, SASS: "
+            f"{local.get(n, ('?', '?'))[0]} LDL/STL, registers up to "
+            f"R{local.get(n, ('?', '?'))[1]}" for n, r, sp in regs))
+        for ln in _build.build_log(lib).splitlines():   # e.g. a wgmma
+            if "warning" in ln.lower():                  # serialized
+                print(f"ptxas {lib}: {ln.strip()}")
+        if lib == "flash_bwd":
+            tma = [(n, sp, local.get(n, (None,))[0]) for n, _, sp in regs
+                   if "_tma_" in n]
+            check(tma and all(sp == 0 and ls == 0 for _, sp, ls in tma),
+                  f"a tma backward kernel spills: {tma}")
 
     worst, timings = phase_kernel(torch, fa, spec)
     worst_bwd, timings_bwd = phase_kernel_bwd(torch, fa, spec)
@@ -1129,26 +1289,28 @@ def main():
     params = tfm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
 
-    by_variant = fa.flash_fwd_cuda.variant_launches
-
     def run_path(name, fn, needs):
         """``fn()`` with every launch count set to 0 just before; checks
-        that it launched each kernel of ``needs``, and every bf16 B1
-        launch on the TMA/wgmma kernel; returns the counts."""
+        that it launched each kernel of ``needs``, and every bf16 launch
+        of B1, B2 and B3 on its TMA/wgmma kernel; returns the counts."""
         for c in counters.values():
             c.launches = 0
-        for var in by_variant:
-            by_variant[var] = 0
+        for w in VARIANT_WRAPPERS:
+            by = counters[w].variant_launches
+            for var in by:
+                by[var] = 0
         out = fn()
         ran = {k: c.launches for k, c in counters.items()}
-        ran["flash_fwd by variant"] = dict(by_variant)
+        for w in VARIANT_WRAPPERS:
+            ran[f"{w} by variant"] = dict(counters[w].variant_launches)
         print(f"launches on the {name} path: {ran}")
         for k in needs:
             check(ran[k] > 0, f"the {name} path never launched {k}")
-        if "flash_fwd" in needs:
-            check(by_variant["tma"] > 0 and by_variant["mma"] == 0,
-                  f"the {name} path sent bf16 B1 launches past the "
-                  f"TMA/wgmma kernel: {by_variant}")
+            if k in VARIANT_WRAPPERS:
+                by = ran[f"{k} by variant"]
+                check(by["tma"] > 0 and by["mma"] == 0,
+                      f"the {name} path sent bf16 {k} launches past the "
+                      f"TMA/wgmma kernel: {by}")
         return ran, out
 
     def serving():
@@ -1171,19 +1333,26 @@ def main():
     finally:
         dist.destroy_process_group()
     paths = (served, trained, resnet_ran)
-    launches = {k: sum(r[k] for r in paths) for k in counters}
-    fwd_by = {var: sum(r["flash_fwd by variant"][var] for r in paths)
-              for var in by_variant}
-    launches["flash_fwd_mma"] = fwd_by["mma"]
+    by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
+                      for var in counters[w].variant_launches}
+                  for w in VARIANT_WRAPPERS}
 
     kernels = []
     for k in KERNELS:
         t = timings.get(k["name"]) or timings[k["name"], (8, 512, 16, 64)]
-        extra = {"launches_by_variant": fwd_by} \
-            if k["name"] == "flash_fwd" else {}
+        extra = {}
+        if k.get("variant") == "tma":   # all of the wrapper's launches
+            launches = sum(r[k["wrapper"]] for r in paths)
+            extra["launches_by_variant"] = by_variant[k["wrapper"]]
+        elif "variant" in k:
+            launches = by_variant[k["wrapper"]][k["variant"]]
+        else:
+            launches = sum(r[k["wrapper"]] for r in paths)
+        if "delta_ms" in t:
+            extra["delta_ms"] = t["delta_ms"]
         kernels.append(dict(
             {f: k[f] for f in ("name", "route", "source", "replaces")},
-            launches=launches[k["name"]], max_abs_err=worst[k["name"]],
+            launches=launches, max_abs_err=worst[k["name"]],
             ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], **extra))

@@ -17,10 +17,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"  // bf16, pack_bf16
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `p` moved up to the next 1024-byte boundary of shared memory, where a
+// swizzled atom may start.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------------------
@@ -198,6 +206,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (the m16n8k16
 // A fragment of each warp's 16 rows), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
@@ -255,6 +286,86 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// The register-A products by accumulator size (N = 64 or 128 columns), for
+// kernels templated on the head dim.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  wgmma_rs_n64(d, a0, a1, a2, a3, db);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  wgmma_rs_n128(d, a0, a1, a2, a3, db);
+}
+
+// ---------------------------------------------------------------------------
+// Softmax and epilogue pieces of the TMA kernels.
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (subnormals flushed): exp(x) with the
+// scale and log2 e folded into the FMA that makes x.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [row0, row0 + 64) of head (b, h) of a contiguous [B, S, H, D] bf16
+// output from a warpgroup's m64nDP accumulator, each thread's rows
+// g + 8 r times mul[r], in two steps: into `tile`, a [64][DP] tile of
+// 64-column atoms `atom` bytes apart, swizzled as above and no longer read;
+// then, after named barrier `bar` of the warpgroup's 128 threads, row by
+// row in 16-byte stores, rows past S and columns past D cut off.
+template <int DP>
+__device__ __forceinline__ void store_acc_rows(const float (&acc)[DP / 2],
+                                               const float (&mul)[2],
+                                               uint8_t* tile, int atom,
+                                               int bar, bf16* out, int b,
+                                               int h, int H, int S, int D,
+                                               int row0) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 16 * warp + g + 8 * r;  // rr % 8 == g
+#pragma unroll
+    for (int ob = 0; ob < DP / 8; ++ob)
+      *reinterpret_cast<uint32_t*>(tile + (ob / 8) * atom + rr * 128 +
+                                   ((ob % 8) ^ g) * 16 + 4 * t) =
+          pack_bf16(acc[4 * ob + 2 * r] * mul[r],
+                    acc[4 * ob + 2 * r + 1] * mul[r]);
+  }
+  named_barrier_sync(bar, 128);
+  constexpr int kUnits = DP / 8;  // 16-byte units of a row
+#pragma unroll
+  for (int i = 0; i < 64 * kUnits / 128; ++i) {
+    const int rr = (tid + 128 * i) / kUnits, u = (tid + 128 * i) % kUnits;
+    const int row = row0 + rr;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        tile + (u / 8) * atom + rr * 128 + ((u % 8) ^ (rr % 8)) * 16);
+    if (row < S && u * 8 < D)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<long long>(b) * S + row) * H + h) * D + u * 8) =
+          val;
+  }
+}
+
+// Host: room for as many blocks of `bytes` of dynamic shared memory as fit
+// an SM (the kernel's limit raised to `bytes`, the carveout at its most).
+template <typename Kernel>
+inline cudaError_t set_dynamic_smem(Kernel kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 // ---------------------------------------------------------------------------

@@ -285,6 +285,35 @@ flash_fwd_cuda.launches = 0
 flash_fwd_cuda.variant_launches = dict.fromkeys(_FWD_VARIANTS, 0)
 
 
+# B2's and B3's kernels in csrc/flash_bwd.cu take B1's variant ids.
+_BWD_VARIANTS = _FWD_VARIANTS
+
+
+def _tma_ready(t):
+    """A bf16 ``[B, S, H, D]`` tensor that a TMA map takes as it lies:
+    every [B, S, H] row start on a 16-byte boundary and positive B, S
+    and H strides (an expanded zero has stride 0)."""
+    return _aligned16(t) and all(t.stride(i) > 0 for i in range(3))
+
+
+def _bwd_takes(variant, q, k, v, do):
+    """Whether B2's and B3's ``variant`` takes q, k, v, dO (as
+    :func:`_bwd_args` has made them): B1's rule for q, k, v, and for
+    "tma" every one of the four :func:`_tma_ready`."""
+    return _fwd_takes(variant, q, k, v) and (
+        variant != "tma" or all(_tma_ready(t) for t in (q, k, v, do)))
+
+
+def _bwd_variant(q, k, v, do):
+    """The B2 and B3 kernels a call takes, from dtype, shape, strides and
+    pointers alone: "tma" for bf16 with D % 8 == 0 and q, k, v and dO
+    :func:`_tma_ready` (every call of the training paths), "mma" for any
+    other bf16, "fma" for float32."""
+    if q.dtype == torch.float32:
+        return "fma"
+    return "tma" if _bwd_takes("tma", q, k, v, do) else "mma"
+
+
 def _bwd_args(q, k, v, do, lse, delta):
     """Checked kernel arguments of the backward: q, k, v, dO with unit
     last stride (other strides are passed through), LSE and Δ as
@@ -303,14 +332,38 @@ def _bwd_args(q, k, v, do, lse, delta):
     # an expanded zero): strides are passed, only a D stride != 1 copies.
     q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v, do.to(q.dtype)))
+    # Where q, k and v would take the TMA kernels and dO alone would not
+    # (stride 0, a row off 16 bytes), dO is copied so that they do.
+    if (_fwd_takes("tma", q, k, v) and all(map(_tma_ready, (q, k, v)))
+            and not _tma_ready(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale):
+def _pick_variant(name, variant, takes, pick, *ts):
+    """``variant``, or ``pick(*ts)`` when it is None; a named variant that
+    ``takes`` refuses for the tensors raises here, before anything is
+    built or launched."""
+    if variant is None:
+        return pick(*ts)
+    if not takes(variant, *ts):
+        raise ValueError(
+            f"{name} variant {variant!r} does not take {ts[0].dtype} "
+            f"tensors of shape {tuple(ts[0].shape)}, strides "
+            + " ".join(str(t.stride()) for t in ts))
+    return variant
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale,
+                      variant=None):
     """Launch B2 (``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dq``) on the
-    current stream: dQ ``[B, S, H, D]`` in q's dtype. Counts each launch
-    in ``flash_bwd_dq_cuda.launches``."""
+    current stream: dQ ``[B, S, H, D]`` in q's dtype. ``variant`` names
+    the kernel (:data:`_BWD_VARIANTS`); by default :func:`_bwd_variant`
+    picks it. Counts each launch in ``flash_bwd_dq_cuda.launches`` and,
+    by variant, in ``flash_bwd_dq_cuda.variant_launches``."""
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    variant = _pick_variant("flash_bwd_dq", variant, _bwd_takes,
+                            _bwd_variant, q, k, v, do)
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _lib("flash_bwd")
@@ -319,18 +372,24 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale):
         err = lib.hvd_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPE_ID[q.dtype], B, S, H, D, *_bhs(q, k, v, do),
+            _BWD_VARIANTS[variant], B, S, H, D, *_bhs(q, k, v, do),
             float(sm_scale), _MODE_ID[mode], stream)
     _check_launch(lib, "flash_bwd_dq", err, q.device)
     flash_bwd_dq_cuda.launches += 1
+    flash_bwd_dq_cuda.variant_launches[variant] += 1
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale):
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale,
+                       variant=None):
     """Launch B3 (``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dkv``) on the
-    current stream: (dK, dV) ``[B, S, H, D]`` in k's and v's dtype. Counts
-    each launch in ``flash_bwd_dkv_cuda.launches``."""
+    current stream: (dK, dV) ``[B, S, H, D]`` in k's and v's dtype.
+    ``variant`` as in :func:`flash_bwd_dq_cuda`. Counts each launch in
+    ``flash_bwd_dkv_cuda.launches`` and, by variant, in
+    ``flash_bwd_dkv_cuda.variant_launches``."""
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    variant = _pick_variant("flash_bwd_dkv", variant, _bwd_takes,
+                            _bwd_variant, q, k, v, do)
     B, S, H, D = q.shape
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
@@ -340,15 +399,18 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale):
         err = lib.hvd_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_ID[q.dtype], B, S, H, D, *_bhs(q, k, v, do),
+            _BWD_VARIANTS[variant], B, S, H, D, *_bhs(q, k, v, do),
             float(sm_scale), _MODE_ID[mode], stream)
     _check_launch(lib, "flash_bwd_dkv", err, q.device)
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.variant_launches[variant] += 1
     return dk, dv
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.variant_launches = dict.fromkeys(_BWD_VARIANTS, 0)
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.variant_launches = dict.fromkeys(_BWD_VARIANTS, 0)
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, mode, sm_scale):
@@ -358,9 +420,8 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, mode, sm_scale):
     return dq, dk, dv
 
 
-# ctypes signatures: pointers, then ints (the forward's variant or the
-# backward's dtype; B, S, H, D), the B/S/H strides of each [B, S, H, D]
-# input, sm_scale, mode, stream.
+# ctypes signatures: pointers, then ints (the variant; B, S, H, D), the
+# B/S/H strides of each [B, S, H, D] input, sm_scale, mode, stream.
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": (5, 3)},
     "flash_bwd": {"hvd_flash_bwd_dq": (7, 4), "hvd_flash_bwd_dkv": (8, 4)},
