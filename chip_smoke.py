@@ -32,12 +32,25 @@ Phases (each prints its lines; any failure exits non-zero):
    float32 every served token's logits are held to
    ``forward(attn_impl="flash")`` over the prompt plus the tokens served
    so far; in bf16 it reports tok/s and TTFT p50;
-4. train: ``make_train_step`` over an NCCL group of size 1 with AdamW,
-   bert-large B=8 S=512 bf16 flash: step 0's loss and gradients through
-   flash against gather (f32 and bf16), launches per step (also with
-   remat), a falling loss, tokens/s and a profile; then the long-context
-   train step, whose step-0 loss must equal phase 2's eval loss;
-5. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+4. train: ``make_train_step`` over ``hvd.init()``'s NCCL world of size
+   1 with AdamW, bert-large B=8 S=512 bf16 flash: step 0's loss and
+   gradients through flash against gather (f32 and bf16), launches per
+   step (also with remat), a falling loss, tokens/s and a profile; then
+   the long-context train step, whose step-0 loss must equal phase 2's
+   eval loss;
+5. hvd: the Horovod API (horovod_tpu_torch/hvd.py) on the card. (a)
+   every collective of ops/torch_ops.py, in-mesh and Horovod, on CUDA
+   tensors in f32 and bf16 over the NCCL world of size 1, each output a
+   CUDA tensor equal to what size 1 means (the identity; ragged_alltoall
+   clamps an overflowing count to its capacity); (b) bert-large B=8
+   S=512 bf16 flash through ``hvd.broadcast_parameters`` and
+   ``hvd.DistributedOptimizer(AdamW)`` from phase 4's parameters: step
+   0's loss, every gradient leaf and every leaf's update against
+   ``make_train_step``'s step 0 on the same batch, a falling loss over 4
+   steps, tokens/s of both; (c) ``make_train_step`` over
+   ``create_mesh({"data": 1})`` with ``data_axis=("data",)`` and
+   ``grad_reduce="adasum"``, step 0 against the same reference;
+6. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -45,7 +58,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-6. one JSON line of kernels, then the result line.
+7. one JSON line of kernels, then the result line.
 
 The kernel phase 1 also holds B4 (csrc/paired_reduce.cu) against its
 plain version at every (R, C) a ResNet-50 step gives it, at ragged
@@ -53,10 +66,12 @@ shapes and on an unaligned pointer, bf16 and f32, as (x, x) and (dy, x),
 checks that two launches give the same bits, and times the kernel, the
 plain version and torch's own batch-norm reductions (yardsticks only).
 
-Phases 2-3 (serving), 4 (training) and 5 (ResNet training) are the main
-paths: each starts with every kernel's launch count at 0 and must launch
-the kernels it runs, every bf16 launch of B1, B2 and B3 on its TMA/wgmma
-kernel. Exits with code 2, printing no result, when no CUDA device is
+Phases 2-3 (serving), 4 (training), 5 (the Horovod API) and 6 (ResNet
+training) are the main paths: each starts with every kernel's launch
+count at 0 and must launch the kernels it runs, every bf16 launch of B1,
+B2 and B3 on its TMA/wgmma kernel. The card has one device and NCCL
+takes one rank per device, so every NCCL group here has one rank; more
+ranks are checked over gloo on the CPU (tests/test_torch_*.py). Exits with code 2, printing no result, when no CUDA device is
 present.
 """
 
@@ -183,6 +198,17 @@ TOL_BWD = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 # and every leaf within 0.1 in relative norm.
 TOL_TRAIN_F32 = 1e-4
 TOL_TRAIN_BF16_LOSS, TOL_TRAIN_BF16_GRAD = 2e-2, 0.1
+# The hvd phase's bert-large step 0 (DistributedOptimizer; make_train_step
+# over a Mesh with adasum) against make_train_step's mean step 0 from the
+# same parameters and batch. At world size 1 every reduction is the
+# identity, so the two run the same kernels on the same inputs: the loss
+# within 1e-5 (a reordered f32 sum of ~4096 NLLs of ~10 would move it
+# ~1e-6), every gradient leaf within 1e-4 in relative norm (room for an
+# accumulation in another order), and every leaf's update (after - before)
+# within 1e-2 in relative norm: AdamW's first update is ~lr * sign(g), so
+# an element whose gradient is at float32 noise may flip, but a wrong
+# gradient moves the update by ~1.
+TOL_HVD = dict(loss=1e-5, grad=1e-4, update=1e-2)
 # Served float32 logits against forward(flash) in float32.
 TOL_SERVE_F32 = 1e-3
 # B4 against its plain version, per channel: |s - plain| <= 1e-5 * sum_r|a|
@@ -848,11 +874,28 @@ def _trainable(torch, params):
     return conv(params)
 
 
+# optax.adamw(1e-4), the bench's optimizer, in PyTorch's terms (torch's
+# default weight_decay is 1e-2, optax's 1e-4).
+ADAMW = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
 def _adamw(torch, dp, params):
-    """optax.adamw(1e-4), the bench's optimizer, in PyTorch's terms (torch's
-    default weight_decay is 1e-2, optax's 1e-4)."""
-    return torch.optim.AdamW(dp.tree_leaves(params), lr=1e-4,
-                             betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    return torch.optim.AdamW(dp.tree_leaves(params), **ADAMW)
+
+
+def _recording_adamw(torch, dp, params):
+    """_adamw that keeps the gradients its first step is given, in leaf
+    order, in ``.grads``."""
+    class FirstGrads(torch.optim.AdamW):
+        grads = None
+
+        def step(self, closure=None):
+            if self.grads is None:
+                self.grads = [p.grad.detach().clone()
+                              for g in self.param_groups for p in g["params"]]
+            return super().step(closure)
+
+    return FirstGrads(dp.tree_leaves(params), **ADAMW)
 
 
 def _timed_steps(torch, step, params, batch, n):
@@ -960,6 +1003,159 @@ def phase_train(torch, tfm, fa, dp, params, cfg, group, longctx):
     print(line)
     print(f"time train longctx S=4096 B=1 bf16 flash: {sec * 1e3:.2f} "
           f"ms/step, {4096 / sec:.1f} tokens/s (1 step)")
+
+
+def _hvd_collectives(torch, hvd, ops):
+    """Every collective on CUDA tensors over hvd's world; returns the
+    number of checks."""
+    ps = hvd.global_process_set
+    g = ps.group
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(64, 33, generator=gen, device="cuda").to(dt)
+        recv, counts = ops.ragged_alltoall(
+            x[:5], torch.tensor([5], device="cuda"), g, 3)
+        split_out, split_in = hvd.alltoall(x, splits=[64])
+        tree = hvd.allreduce_pytree({"a": x, "b": [x]})
+        btree = hvd.broadcast_pytree({"a": x, "b": [x]}, root_rank=0)
+        cases = [(f"allreduce {name}", ops.allreduce(x, g, op), x)
+                 for name, op in (("Sum", ops.Sum), ("Average", ops.Average),
+                                  ("Min", ops.Min), ("Max", ops.Max),
+                                  ("Product", ops.Product),
+                                  ("Adasum", ops.Adasum))] + [
+            ("adasum", ops.adasum(x, g), x),
+            ("allgather", ops.allgather(x, g), x),
+            ("broadcast", ops.broadcast(x, g, 0), x),
+            ("alltoall 0 0", ops.alltoall(x, g, 0, 0), x),
+            ("alltoall 1 0", ops.alltoall(x, g, 1, 0), x),
+            ("reducescatter Sum", ops.reducescatter(x, g, ops.Sum), x),
+            ("reducescatter Average", ops.reducescatter(x, g, ops.Average),
+             x),
+            ("ragged_alltoall rows", recv, x[:3][None]),
+            ("ragged_alltoall counts (5 clamped to capacity 3)", counts,
+             torch.tensor([3], dtype=torch.int32, device="cuda")),
+            ("hvd.allreduce", hvd.allreduce(x), x),
+            ("hvd.allreduce Sum x2 /2", hvd.allreduce(
+                x, hvd.Sum, prescale_factor=2.0, postscale_factor=0.5), x),
+            ("hvd.allreduce Adasum", hvd.allreduce(x, hvd.Adasum), x),
+            ("hvd.allreduce_pytree", tree["b"][0], x),
+            ("hvd.allgather", hvd.allgather(x), x),
+            ("hvd.alltoall", hvd.alltoall(x), x),
+            ("hvd.alltoall splits", split_out, x),
+            ("hvd.alltoall received splits", split_in,
+             torch.tensor([64], device="cuda")),
+            ("hvd.reducescatter", hvd.reducescatter(x), x),
+            ("hvd.broadcast", hvd.broadcast(x, root_rank=0), x),
+            ("hvd.broadcast_pytree", btree["b"][0], x)]
+        for name, got, want in cases:
+            check(got.is_cuda and got.dtype == want.dtype
+                  and torch.equal(got, want),
+                  f"hvd {name} {dt} at world size 1: {got.device} "
+                  f"{got.dtype} {tuple(got.shape)}, not the identity")
+        n += len(cases)
+    obj = {"rank": hvd.rank(), "w": [1.5, "x"]}
+    check(hvd.allgather_object(obj) == [obj]
+          and hvd.broadcast_object(obj, root_rank=0) == obj
+          and hvd.metric_average(2.5) == 2.5,
+          "hvd object ops at world size 1")
+    hvd.barrier()
+    return n + 4
+
+
+def _step0_against(torch, label, ref, before, loss, grads, after):
+    """Print and check one step 0 against make_train_step's (``ref``:
+    loss, gradients, updates) from the same parameters ``before``."""
+    ref_loss, ref_grads, ref_upd = ref
+    g_rel = [((a - b).norm() / b.norm()).item()
+             for a, b in zip(grads, ref_grads)]
+    u_rel = [((a - b0 - u).norm() / u.norm()).item()
+             for a, b0, u in zip(after, before, ref_upd)]
+    dl = abs(loss - ref_loss)
+    line = (f"{label} step 0 against make_train_step's: loss {loss:.6f} "
+            f"vs {ref_loss:.6f} |diff| {dl:.3g} (tol {TOL_HVD['loss']}); "
+            f"{len(g_rel)} leaves, worst gradient rel {max(g_rel):.3g} "
+            f"(tol {TOL_HVD['grad']}), {sum(r == 0 for r in g_rel)} "
+            f"bit-equal; worst update rel {max(u_rel):.3g} (tol "
+            f"{TOL_HVD['update']})")
+    check(dl <= TOL_HVD["loss"] and max(g_rel) <= TOL_HVD["grad"]
+          and max(u_rel) <= TOL_HVD["update"], line)
+    print(line)
+
+
+def phase_hvd(torch, tfm, dp, hvd, ops, params, cfg, card):
+    """The Horovod API on the card: (a) the collectives; (b) bert-large
+    through DistributedOptimizer; (c) make_train_step over a Mesh with
+    adasum. (b) and (c) are held to make_train_step's step 0."""
+    group = hvd.global_process_set.group
+    n = _hvd_collectives(torch, hvd, ops)
+    print(f"hvd collectives over world size {hvd.size()} (backend "
+          f"{group.name()}, device {hvd.global_process_set.world.device}): "
+          f"{n} checks on CUDA tensors in float32 and bfloat16, each the "
+          f"identity that size 1 means")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                     generator=gen, device="cuda")}
+    B, S = 8, 512
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    before = dp.tree_leaves(params)
+
+    def loss_fn(p, b):
+        return tfm.loss_fn(p, b, flash)
+
+    # The reference: make_train_step's mean step 0, then 3 timed steps.
+    tp = _trainable(torch, params)
+    opt = _recording_adamw(torch, dp, tp)
+    with torch.enable_grad():
+        step = dp.make_train_step(loss_fn, opt, group)
+        ref_loss = step(tp, batch).item()
+        ref = (ref_loss, opt.grads, [a.detach() - b for a, b in
+                                     zip(dp.tree_leaves(tp), before)])
+        _, ref_sec = _timed_steps(torch, step, tp, batch, 3)
+    del tp, opt, step
+
+    # (b) DistributedOptimizer, as a Horovod user writes the step.
+    hp = _trainable(torch, params)
+    hvd.broadcast_parameters(hp, root_rank=0)
+    hopt = hvd.DistributedOptimizer(_recording_adamw(torch, dp, hp))
+
+    def hstep(p, b):
+        loss = loss_fn(p, b)
+        loss.backward()
+        hopt.step()
+        hopt.zero_grad(set_to_none=True)
+        return hvd.allreduce(loss.detach().reshape(1))[0]
+
+    with torch.enable_grad():
+        loss0 = hstep(hp, batch).item()
+        _step0_against(torch, "hvd DistributedOptimizer(AdamW) bert-large "
+                       "B=8 S=512 bf16 flash", ref, before, loss0,
+                       hopt.optimizer.grads, dp.tree_leaves(hp))
+        more, sec = _timed_steps(torch, hstep, hp, batch, 3)
+    losses = [loss0] + more
+    line = (f"hvd bert-large DistributedOptimizer over {group.name()} world "
+            f"size {hvd.size()}: losses {[round(x, 5) for x in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], line)
+    print(line)
+    print(f"time hvd bert-large B=8 S=512 bf16 flash ({card}): "
+          f"DistributedOptimizer {sec * 1e3:.2f} ms/step, "
+          f"{B * S / sec:.1f} tokens/s; make_train_step "
+          f"{ref_sec * 1e3:.2f} ms/step, {B * S / ref_sec:.1f} tokens/s "
+          f"(3 steps each, after step 0)")
+    del hp, hopt
+
+    # (c) make_train_step over a Mesh, data_axis a tuple, adasum.
+    mesh = hvd.global_mesh({"data": 1})
+    mp = _trainable(torch, params)
+    mopt = _recording_adamw(torch, dp, mp)
+    with torch.enable_grad():
+        mstep = dp.make_train_step(loss_fn, mopt, mesh, data_axis=("data",),
+                                   grad_reduce="adasum")
+        mloss = mstep(mp, batch).item()
+    _step0_against(torch, f"make_train_step over {mesh} data_axis=('data',) "
+                   f"grad_reduce='adasum'", ref, before, mloss, mopt.grads,
+                   dp.tree_leaves(mp))
 
 
 def b4_bound_ms(R, C, dtype_name, same, spec):
@@ -1237,14 +1433,14 @@ def main():
     # A kernel that never ends must not outlive the run's limit: dump the
     # stacks and end the process (and with it the CUDA context).
     faulthandler.dump_traceback_later(1100, exit=True)
-    import torch.distributed as dist
-
+    import horovod_tpu_torch.hvd as hvd
     from horovod_tpu_torch import _build, graft_entry
     from horovod_tpu_torch import parallel as dp
     from horovod_tpu_torch.models import resnet
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import torch_ops
     from horovod_tpu_torch.serving import kv_cache, loop
 
     counters = {"flash_fwd": fa.flash_fwd_cuda,
@@ -1319,20 +1515,24 @@ def main():
         return longctx
 
     served, longctx = run_path("serving", serving, ["flash_fwd"])
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
+    hvd.init()                            # NCCL, world size 1
     try:
+        group = hvd.global_process_set.group
         trained, _ = run_path("training", lambda: phase_train(
-            torch, tfm, fa, dp, params, cfg, dist.group.WORLD, longctx),
+            torch, tfm, fa, dp, params, cfg, group, longctx),
             ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
-        del params, longctx               # bert-large leaves the card
+        del longctx
+        hvd_ran, _ = run_path("hvd", lambda: phase_hvd(
+            torch, tfm, dp, hvd, torch_ops, params, cfg, card),
+            ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+        del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
-            torch, resnet, bn, dp, graft_entry, dist.group.WORLD,
-            macs // 128), ["paired_reduce"])
+            torch, resnet, bn, dp, graft_entry, group, macs // 128),
+            ["paired_reduce"])
     finally:
-        dist.destroy_process_group()
-    paths = (served, trained, resnet_ran)
+        hvd.shutdown()
+    paths = (served, trained, hvd_ran, resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}

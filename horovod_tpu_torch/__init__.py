@@ -5,8 +5,8 @@ the counterpart of ``horovod_tpu/x/y.py``. The port imports ``torch``
 and never JAX, nor anything of the JAX package; where it needs one of
 that package's framework-neutral modules it keeps its own copy.
 
-What is ported so far is inference and single-card training at full
-width:
+What is ported so far is inference, training at full width, and the
+Horovod API over process groups:
 
 - :mod:`.models.transformer` — config, params, ``forward`` (gather and
   flash attention) and the differentiable ``loss_fn`` (``remat``,
@@ -21,9 +21,17 @@ width:
 - :mod:`.ops.batch_norm` — BatchNorm's paired reduction, a hand-written
   sm_90a CUDA kernel (``csrc/paired_reduce.cu``) with its plain version,
   and the training-mode ``batch_norm_train`` built on it;
-- :mod:`.parallel` — ``make_train_step`` (gradients and loss averaged
-  over a ``torch.distributed`` group, accumulation, buckets, wire-cast
-  compression), ``shard_batch`` and ``replicate``;
+- :mod:`.hvd` — the Horovod API (``init``, ``DistributedOptimizer``,
+  ``broadcast_parameters``, ``broadcast_optimizer_state``, the
+  collectives, process sets) over :mod:`.distributed` (the job's world
+  from the launcher's environment: NCCL on the card, gloo on the CPU),
+  :mod:`.process_sets` and :mod:`.ops.torch_ops` (the collectives on
+  torch tensors, in-mesh and Horovod);
+- :mod:`.parallel` — ``create_mesh`` (named axes over the ranks, one
+  process group per axis slice), ``make_train_step`` (gradients and
+  loss averaged over a group or a mesh's data axes, Adasum,
+  ``extra_reduce``, accumulation, buckets, wire-cast compression),
+  ``shard_batch`` and ``replicate``;
 - :mod:`.compression` — the fp16/bf16 compressors and wire-cast counters;
 - :mod:`.serving` — paged KV cache, kernel-free engine, scheduler and
   :class:`~.serving.loop.ServeLoop`;

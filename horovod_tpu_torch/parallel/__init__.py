@@ -1,7 +1,7 @@
-"""Data parallelism over ``torch.distributed`` process groups: the port of
-``horovod_tpu/parallel/`` as far as the single-card training path needs
-it. The mesh layer (``create_mesh``), ring attention, Ulysses, expert
-and pipeline parallelism come in later slices (ROADMAP Queue A).
+"""Data parallelism and meshes over ``torch.distributed`` process groups:
+the port of ``horovod_tpu/parallel/`` as far as it is done. Ring
+attention, Ulysses, tensor, expert and pipeline parallelism come in
+later slices (ROADMAP Queue A).
 """
 
 from .data_parallel import (  # noqa: F401
@@ -12,3 +12,4 @@ from .data_parallel import (  # noqa: F401
     tree_flatten_with_path,
     tree_leaves,
 )
+from .mesh import Mesh, World, create_mesh, mesh_axis_size  # noqa: F401

@@ -1,11 +1,14 @@
 """The port's data-parallel step (horovod_tpu_torch/parallel/data_parallel.py)
 against itself on one process and against the JAX package's
-``make_train_step`` on a 2-device CPU mesh.
+``make_train_step`` on a 2-device CPU mesh; Adasum at 2 and 4 ranks, a
+tuple ``data_axis`` over a ``{"data": 2, "seq": 2}`` mesh and an
+``extra_reduce`` hook against the same on 2- and 4-device meshes.
 
-Two ranks run in one process: two threads, each with its own
-``torch.distributed.ProcessGroupGloo`` over one shared ``HashStore``;
-each thread is joined with a timeout, and a thread still alive fails the
-test. No process is spawned.
+Ranks run in one process: threads, each with its own
+``torch.distributed.ProcessGroupGloo`` (or a ``World`` of them, for a
+mesh) over one shared ``HashStore``; each thread is joined with a
+timeout, and a thread still alive fails the test. No process is
+spawned.
 
 Model: ``tiny()`` dense, float32, gather attention; AdamW(lr=1e-4,
 weight_decay=1e-4) on both sides (optax.adamw(1e-4) in JAX).
@@ -36,10 +39,10 @@ from horovod_tpu_torch import compression  # noqa: E402
 from horovod_tpu_torch.models import transformer as ttfm  # noqa: E402
 from horovod_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from horovod_tpu_torch.parallel import (  # noqa: E402
-    bucket_plan, make_train_step, replicate, shard_batch,
+    bucket_plan, create_mesh, make_train_step, replicate, shard_batch,
     tree_flatten_with_path, tree_leaves)
 
-from .torch_train_parity import run_ranks  # noqa: E402
+from .torch_train_parity import run_ranks, run_worlds  # noqa: E402
 
 JCFG = dataclasses.replace(jtfm.tiny(), dtype="float32", attn_impl="gather")
 TCFG = dataclasses.replace(ttfm.tiny(), dtype="float32", attn_impl="gather")
@@ -52,7 +55,7 @@ def jax_params():
         jax.random.PRNGKey(3), jtfm.tiny())
 
 
-def _port_train(jax_params, group, steps=1, **kw):
+def _port_train(jax_params, group, steps=1, data_axis="data", **kw):
     """Params and losses after ``steps`` steps of the port's step on this
     rank's shard of TOKENS."""
     params = params_from_jax(jax.tree.map(np.asarray, jax_params),
@@ -61,21 +64,24 @@ def _port_train(jax_params, group, steps=1, **kw):
     opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
     step = make_train_step(lambda p, b: ttfm.loss_fn(p, b, TCFG), opt,
-                           group, **kw)
-    batch = shard_batch({"tokens": torch.tensor(TOKENS).long()}, group)
+                           group, data_axis=data_axis, **kw)
+    batch = shard_batch({"tokens": torch.tensor(TOKENS).long()}, group,
+                        data_axis)
     losses = [step(params, batch).item() for _ in range(steps)]
     return {p: x.detach().numpy().copy()
             for p, x in tree_flatten_with_path(params)}, losses
 
 
-def _jax_train(jax_params, steps=1, **kw):
-    mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
+def _jax_train(jax_params, steps=1, shape=None, data_axis="data", **kw):
+    shape = shape or {"data": 2}
+    devices = np.array(jax.devices()[:int(np.prod(list(shape.values())))])
+    mesh = Mesh(devices.reshape(tuple(shape.values())), tuple(shape))
     tx = optax.adamw(1e-4)
     step = jdp.make_train_step(lambda p, b: jtfm.loss_fn(p, b, JCFG), tx,
-                               mesh, donate=False, **kw)
+                               mesh, data_axis=data_axis, donate=False, **kw)
     params = jdp.replicate(jax_params, mesh)
     state = jdp.replicate(tx.init(jax_params), mesh)
-    batch = jdp.shard_batch({"tokens": TOKENS}, mesh)
+    batch = jdp.shard_batch({"tokens": TOKENS}, mesh, data_axis)
     losses = []
     for _ in range(steps):
         params, state, loss = step(params, state, batch)
@@ -179,8 +185,6 @@ def test_wire_cast_routing_is_counted():
 
 
 def test_bad_arguments_raise(jax_params):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        make_train_step(lambda p, b: 0, None, grad_reduce="adasum")
     with pytest.raises(ValueError):
         make_train_step(lambda p, b: 0, None, grad_reduce="max")
     with pytest.raises(ValueError, match="divisible by accum_steps"):
@@ -235,3 +239,55 @@ def test_allreduce_gets_contiguous_tensors(jax_params, bucket_bytes):
     assert all(t.is_contiguous() for t in group.seen)
     _assert_close(got, _port_train(jax_params, None,
                                    bucket_bytes=bucket_bytes), atol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_adasum_equals_jax(jax_params, n):
+    """grad_reduce="adasum" over a mesh of n ranks (every gradient leaf
+    through the VHDD recursion, buckets off, the loss averaged) against
+    the reference's on an n-device mesh; it moves the params otherwise
+    than the mean (the one-process step) does."""
+    shape = {"data": n}
+    kw = dict(grad_reduce="adasum", bucket_bytes=16 << 10)
+    ranks = run_worlds(n, lambda w: _port_train(
+        jax_params, create_mesh(shape, w), **kw))
+    for r in ranks[1:]:
+        _assert_close(r, ranks[0], atol=0)
+    with pytest.raises(AssertionError):
+        _assert_close(ranks[0], _port_train(jax_params, None), atol=1e-5)
+    _assert_close(ranks[0], _jax_train(jax_params, shape=shape, **kw),
+                  atol=1e-5)
+
+
+def test_tuple_data_axis_equals_jax(jax_params):
+    """data_axis=("data", "seq") over {"data": 2, "seq": 2}: the batch
+    split over both axes (data major) and the gradients and the loss
+    averaged over each in turn, as the reference's P(("data", "seq"))
+    and per-axis pmean."""
+    shape, axes = {"data": 2, "seq": 2}, ("data", "seq")
+    ranks = run_worlds(4, lambda w: _port_train(
+        jax_params, create_mesh(shape, w), data_axis=axes))
+    _assert_close(ranks[3], ranks[0], atol=0)
+    _assert_close(ranks[0], _port_train(jax_params, None), atol=1e-6)
+    _assert_close(ranks[0], _jax_train(jax_params, shape=shape,
+                                       data_axis=axes), atol=1e-5)
+
+
+def test_extra_reduce_equals_jax(jax_params):
+    """An extra_reduce hook that scales the reduced gradients, negating
+    embed's and zeroing final_ln's (AdamW cancels a positive common
+    factor, not these), runs before the optimizer on both sides."""
+    def port_hook(g):
+        return dict(g, embed=-g["embed"], final_ln={
+            k: 0.0 * v for k, v in g["final_ln"].items()})
+
+    def jax_hook(g):
+        return dict(g, embed=-g["embed"], final_ln=jax.tree.map(
+            lambda v: 0.0 * v, g["final_ln"]))
+
+    ranks = run_ranks(2, lambda g, r: _port_train(
+        jax_params, g, extra_reduce=port_hook))
+    with pytest.raises(AssertionError):     # the hook moved the params
+        _assert_close(ranks[0], _port_train(jax_params, None), atol=1e-5)
+    _assert_close(ranks[0], _jax_train(jax_params, extra_reduce=jax_hook),
+                  atol=1e-5)

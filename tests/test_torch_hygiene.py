@@ -4,7 +4,8 @@
   flax, optax or the JAX package (an AST scan of every import).
 - Entry points called without ``device`` go to the CUDA card: on a box
   without one they raise instead of running on the CPU; with
-  ``device="cpu"`` they run there.
+  ``device="cpu"`` they run there (``hvd.init``: a gloo world of one
+  rank, shut down after).
 """
 
 import ast
@@ -16,6 +17,7 @@ import torch
 
 torch.set_num_threads(1)
 
+import horovod_tpu_torch.hvd as hvd  # noqa: E402
 from horovod_tpu_torch.device import resolve_device  # noqa: E402
 from horovod_tpu_torch.graft_entry import entry  # noqa: E402
 from horovod_tpu_torch.models import resnet  # noqa: E402
@@ -71,27 +73,39 @@ def _entry_points(device):
             model=resnet.ResNet((1, 1, 1, 1), num_classes=10, num_filters=8,
                                 device=device or "cpu"), **kw),
         "entry": lambda: entry(**kw),
+        "hvd.init": lambda: hvd.init(**kw),
     }
 
 
 ENTRY_POINTS = ["init_params", "params_from_jax", "make_cache", "ServeLoop",
-                "create_train_state", "entry"]
+                "create_train_state", "entry", "hvd.init"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_default_to_cuda(name):
     call = _entry_points(None)[name]
-    if torch.cuda.is_available():
-        assert resolve_device() == torch.device("cuda")
-        call()
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
+    try:
+        if torch.cuda.is_available():
+            assert resolve_device() == torch.device("cuda")
             call()
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    finally:
+        hvd.shutdown()
+    assert not hvd.is_initialized()
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_run_on_cpu_when_asked(name):
-    out = _entry_points("cpu")[name]()
+    try:
+        out = _entry_points("cpu")[name]()
+        if name == "hvd.init":
+            assert hvd.size() == 1
+            assert hvd.global_process_set.group.name() == "gloo"
+            assert hvd.allreduce(torch.ones(2)).device.type == "cpu"
+    finally:
+        hvd.shutdown()
     if isinstance(out, ServeLoop):
         assert out.cache["k"].device.type == "cpu"
         summary, finished = out.run([])
@@ -104,7 +118,7 @@ def test_entry_points_run_on_cpu_when_asked(name):
         logits = fn(*args)
         assert logits.shape == (8, 1000) and logits.dtype == torch.float32
         assert bool(torch.isfinite(logits).all())
-    else:
+    elif name != "hvd.init":
         assert all(t.device.type == "cpu" for t in _leaves(out))
 
 

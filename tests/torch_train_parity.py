@@ -5,7 +5,9 @@
   ``jax.value_and_grad(horovod_tpu.models.transformer.loss_fn)`` on
   ``tiny()``, with params converted from one JAX init (:class:`JaxRefs`).
 - test_torch_data_parallel.py and test_torch_resnet_train.py: ranks as
-  threads (:func:`run_ranks`).
+  threads (:func:`run_ranks`); the mesh, collective and Horovod API
+  tests give each thread a ``World`` over a shared store
+  (:func:`run_worlds`).
 - the ResNet tests: a narrow, shallow flax ResNet and its port with the
   same variables, made with numpy from a seed (:func:`random_variables`). The variables are drawn at random
   rather than from flax's init (which the port's own initializers
@@ -30,7 +32,7 @@ from horovod_tpu_torch.models import resnet as tresnet
 from horovod_tpu_torch.models import transformer as ttfm
 from horovod_tpu_torch.models.convert import params_from_jax, resnet_from_flax
 from horovod_tpu_torch.parallel import (
-    make_train_step, shard_batch, tree_flatten_with_path, tree_leaves)
+    World, make_train_step, shard_batch, tree_flatten_with_path, tree_leaves)
 
 # [B, S+1]: S = 48, so loss_chunk=16 runs three chunks.
 TOKENS_SHAPE = (2, 49)
@@ -253,17 +255,14 @@ def grad_vector(grads):
     return np.concatenate([grads[k].ravel() for k in sorted(grads)])
 
 
-def run_ranks(n, fn, timeout=60.0):
-    """fn(group, rank) on n threads, one ProcessGroupGloo each over a
-    shared HashStore; returns the results in rank order. Each thread is
-    joined with a timeout, and a thread still alive fails the test. No
-    process is spawned."""
-    store = dist.HashStore()
+def _on_threads(n, fn, timeout):
+    """fn(rank) on n threads; the results in rank order. Each thread is
+    joined with a timeout, and a thread still alive fails the test."""
     out, errs = [None] * n, [None] * n
 
     def target(rank):
         try:
-            out[rank] = fn(dist.ProcessGroupGloo(store, rank, n), rank)
+            out[rank] = fn(rank)
         except BaseException as e:  # re-raised in the test's thread
             errs[rank] = e
 
@@ -278,3 +277,19 @@ def run_ranks(n, fn, timeout=60.0):
         if e is not None:
             raise e
     return out
+
+
+def run_ranks(n, fn, timeout=60.0):
+    """fn(group, rank) on n threads, one ProcessGroupGloo each over a
+    shared HashStore; returns the results in rank order. No process is
+    spawned."""
+    store = dist.HashStore()
+    return _on_threads(
+        n, lambda r: fn(dist.ProcessGroupGloo(store, r, n), r), timeout)
+
+
+def run_worlds(n, fn, timeout=60.0):
+    """fn(world) on n threads, each with its own gloo ``World`` of n ranks
+    over a shared HashStore; returns the results in rank order."""
+    store = dist.HashStore()
+    return _on_threads(n, lambda r: fn(World(store, r, n, "cpu")), timeout)
