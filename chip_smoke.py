@@ -50,7 +50,23 @@ Phases (each prints its lines; any failure exits non-zero):
    steps, tokens/s of both; (c) ``make_train_step`` over
    ``create_mesh({"data": 1})`` with ``data_axis=("data",)`` and
    ``grad_reduce="adasum"``, step 0 against the same reference;
-6. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+6. mesh: (a) bert-large B=8 S=512 bf16 through ``loss_fn(mesh=...)``
+   under ``make_train_step`` over ``create_mesh({"data": 1, "seq": 1,
+   "model": 1})`` (NCCL; the params through ``shard_params``), with
+   ``attn_impl="flash"`` and ``"ring"``: step 0's loss, every gradient
+   leaf and (flash) every update against the mesh-free step from the
+   same parameters (flash against flash, bit-equal expected; ring
+   against gather), a falling loss, 3 timed steps of each beside the
+   mesh-free step's, and a profile (host op calls a step); (b) the
+   ring's per-pair update (parallel/ring_attention.py ``accumulate``) at
+   p = 4 in one process, q, k, v [1, 4096, 16, 64] bf16 in four
+   1024-row blocks, both layouts, causal and not: every (my, src) pair
+   in ring order as rank my runs it, the output and the gradients of q,
+   k and v for a random dO held to ``flash_attention`` over the whole
+   sequence, the flash step also to the same ring through the kernels'
+   plain versions, and the einsum step to the whole sequence; B1's,
+   B2's and B3's launches by mask mode;
+7. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -58,7 +74,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-7. one JSON line of kernels, then the result line.
+8. one JSON line of kernels, then the result line.
 
 The kernel phase 1 also holds B4 (csrc/paired_reduce.cu) against its
 plain version at every (R, C) a ResNet-50 step gives it, at ragged
@@ -66,17 +82,20 @@ shapes and on an unaligned pointer, bf16 and f32, as (x, x) and (dy, x),
 checks that two launches give the same bits, and times the kernel, the
 plain version and torch's own batch-norm reductions (yardsticks only).
 
-Phases 2-3 (serving), 4 (training), 5 (the Horovod API) and 6 (ResNet
-training) are the main paths: each starts with every kernel's launch
-count at 0 and must launch the kernels it runs, every bf16 launch of B1,
-B2 and B3 on its TMA/wgmma kernel. The card has one device and NCCL
-takes one rank per device, so every NCCL group here has one rank; more
-ranks are checked over gloo on the CPU (tests/test_torch_*.py). Exits with code 2, printing no result, when no CUDA device is
-present.
+Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh)
+and 7 (ResNet training) are the main paths: each starts with every
+kernel's launch count at 0 and must launch the kernels it runs, every
+bf16 launch of B1, B2 and B3 on its TMA/wgmma kernel. The card has one
+device and NCCL takes one rank per device, so every NCCL group here has
+one rank; more ranks are checked over gloo on the CPU
+(tests/test_torch_*.py). Exits with code 2, printing no result, when no
+CUDA device is present.
 """
 
+import contextlib
 import dataclasses
 import faulthandler
+import importlib
 import json
 import os
 import re
@@ -209,6 +228,32 @@ TOL_TRAIN_BF16_LOSS, TOL_TRAIN_BF16_GRAD = 2e-2, 0.1
 # an element whose gradient is at float32 noise may flip, but a wrong
 # gradient moves the update by ~1.
 TOL_HVD = dict(loss=1e-5, grad=1e-4, update=1e-2)
+# The mesh phase's bert-large step 0 through loss_fn(mesh=...) over a mesh
+# of one rank against the mesh-free step. flash against flash: every
+# group has one rank, so each collective is the identity (a copy) and
+# both steps run the same kernels on the same inputs; the hvd phase's
+# gates (TOL_HVD), and the line counts the bit-equal leaves. ring against
+# gather: the ring's einsum step keeps the logits, the probabilities and
+# P.V in float32 where gather rounds each to bf16, the same kind of
+# difference as flash against gather in the train phase, with its gates
+# (and none on AdamW's first update, ~lr * sign(g), whose signs flip
+# where two such gradients differ).
+TOL_MESH_FLASH = TOL_HVD
+TOL_MESH_RING = dict(loss=TOL_TRAIN_BF16_LOSS, grad=TOL_TRAIN_BF16_GRAD)
+# The ring of 4 in one process at [1, 4096, 16, 64] bf16: the output
+# within 2e-2 of the reference per element, relative to 1 + |ref| (each
+# block pair's output is rounded to bf16 before the float32 merge, up to
+# four of them a row, plus the final rounding: 2^-9 relative each, and
+# the kernels' P in bf16 as in TOL_O); every gradient within 2e-2 in
+# relative norm (a block's dq, dk and dv are sums of up to four pairs'
+# bf16 gradients, added in bf16 by autograd, against one kernel's f32
+# accumulation over the whole sequence).
+TOL_RING = dict(out=2e-2, grad=2e-2)
+# B1's, B2's and B3's launches by mode over the four rings (contiguous
+# causal: the diagonal 4 and the earlier blocks 6, the later ones
+# skipped; striped causal: 10 diag and 6 strict; not causal, each layout:
+# 16 none).
+RING_MODES = {"none": 6 + 16 + 16, "diag": 4 + 10, "strict": 6}
 # Served float32 logits against forward(flash) in float32.
 TOL_SERVE_F32 = 1e-3
 # B4 against its plain version, per channel: |s - plain| <= 1e-5 * sum_r|a|
@@ -1025,6 +1070,8 @@ def _hvd_collectives(torch, hvd, ops):
                                   ("Product", ops.Product),
                                   ("Adasum", ops.Adasum))] + [
             ("adasum", ops.adasum(x, g), x),
+            # NCCL coalesces the pair (the ring's rotation), to itself here
+            ("sendrecv", ops.sendrecv(x, g, 0, 0), x),
             ("allgather", ops.allgather(x, g), x),
             ("broadcast", ops.broadcast(x, g, 0), x),
             ("alltoall 0 0", ops.alltoall(x, g, 0, 0), x),
@@ -1063,23 +1110,29 @@ def _hvd_collectives(torch, hvd, ops):
     return n + 4
 
 
-def _step0_against(torch, label, ref, before, loss, grads, after):
-    """Print and check one step 0 against make_train_step's (``ref``:
-    loss, gradients, updates) from the same parameters ``before``."""
+def _step0_against(torch, label, ref, before, loss, grads, after, names,
+                   ref_name="make_train_step's", tol=TOL_HVD):
+    """Print and check one step 0 against a reference step 0 (``ref``:
+    loss, gradients, updates) from the same parameters ``before``: the
+    loss, and the worst gradient and update leaves in relative norm with
+    their names and how many are bit-equal. A ``tol`` without "update"
+    gates no update."""
     ref_loss, ref_grads, ref_upd = ref
-    g_rel = [((a - b).norm() / b.norm()).item()
+    g_rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
              for a, b in zip(grads, ref_grads)]
     u_rel = [((a - b0 - u).norm() / u.norm()).item()
              for a, b0, u in zip(after, before, ref_upd)]
+    g, u = (max(range(len(r)), key=r.__getitem__) for r in (g_rel, u_rel))
     dl = abs(loss - ref_loss)
-    line = (f"{label} step 0 against make_train_step's: loss {loss:.6f} "
-            f"vs {ref_loss:.6f} |diff| {dl:.3g} (tol {TOL_HVD['loss']}); "
-            f"{len(g_rel)} leaves, worst gradient rel {max(g_rel):.3g} "
-            f"(tol {TOL_HVD['grad']}), {sum(r == 0 for r in g_rel)} "
-            f"bit-equal; worst update rel {max(u_rel):.3g} (tol "
-            f"{TOL_HVD['update']})")
-    check(dl <= TOL_HVD["loss"] and max(g_rel) <= TOL_HVD["grad"]
-          and max(u_rel) <= TOL_HVD["update"], line)
+    line = (f"{label} step 0 against {ref_name}: loss {loss:.6f} vs "
+            f"{ref_loss:.6f} |diff| {dl:.3g} (tol {tol['loss']}); "
+            f"{len(g_rel)} leaves, worst gradient rel {g_rel[g]:.3g} at "
+            f"{names[g]} (tol {tol['grad']}), "
+            f"{sum(r == 0 for r in g_rel)} bit-equal; worst update rel "
+            f"{u_rel[u]:.3g} at {names[u]} (tol {tol.get('update', 'none')}),"
+            f" {sum(r == 0 for r in u_rel)} bit-equal")
+    check(np.isfinite(loss) and dl <= tol["loss"] and g_rel[g] <= tol["grad"]
+          and u_rel[u] <= tol.get("update", np.inf), line)
     print(line)
 
 
@@ -1100,6 +1153,7 @@ def phase_hvd(torch, tfm, dp, hvd, ops, params, cfg, card):
     B, S = 8, 512
     flash = dataclasses.replace(cfg, attn_impl="flash")
     before = dp.tree_leaves(params)
+    names = [n for n, _ in dp.tree_flatten_with_path(params)]
 
     def loss_fn(p, b):
         return tfm.loss_fn(p, b, flash)
@@ -1131,7 +1185,7 @@ def phase_hvd(torch, tfm, dp, hvd, ops, params, cfg, card):
         loss0 = hstep(hp, batch).item()
         _step0_against(torch, "hvd DistributedOptimizer(AdamW) bert-large "
                        "B=8 S=512 bf16 flash", ref, before, loss0,
-                       hopt.optimizer.grads, dp.tree_leaves(hp))
+                       hopt.optimizer.grads, dp.tree_leaves(hp), names)
         more, sec = _timed_steps(torch, hstep, hp, batch, 3)
     losses = [loss0] + more
     line = (f"hvd bert-large DistributedOptimizer over {group.name()} world "
@@ -1155,7 +1209,192 @@ def phase_hvd(torch, tfm, dp, hvd, ops, params, cfg, card):
         mloss = mstep(mp, batch).item()
     _step0_against(torch, f"make_train_step over {mesh} data_axis=('data',) "
                    f"grad_reduce='adasum'", ref, before, mloss, mopt.grads,
-                   dp.tree_leaves(mp))
+                   dp.tree_leaves(mp), names)
+
+
+def phase_mesh(torch, tfm, convert, dp, hvd, params, cfg, card):
+    """(a) of the mesh phase: bert-large through ``loss_fn(mesh=...)``
+    under ``make_train_step`` over ``create_mesh({"data": 1, "seq": 1,
+    "model": 1})`` (NCCL), flash and ring, each step 0 held to the
+    mesh-free step from the same parameters and batch; 3 timed steps and
+    a profile of each."""
+    group = hvd.global_process_set.group
+    mesh = hvd.global_mesh({"data": 1, "seq": 1, "model": 1})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 513), generator=gen,
+                           device="cuda")
+    B, S = 8, 512
+    names = [n for n, _ in dp.tree_flatten_with_path(params)]
+    before = dp.tree_leaves(params)
+    for impl, ref_impl, tol in (("flash", "flash", TOL_MESH_FLASH),
+                                ("ring", "gather", TOL_MESH_RING)):
+        c_mesh = dataclasses.replace(cfg, attn_impl=impl)
+        c_ref = dataclasses.replace(cfg, attn_impl=ref_impl)
+        rp = _trainable(torch, params)
+        ropt = _recording_adamw(torch, dp, rp)
+        with torch.enable_grad():
+            rstep = dp.make_train_step(
+                lambda p, b, c=c_ref: tfm.loss_fn(p, b, c), ropt, group)
+            ref_loss = rstep(rp, {"tokens": tokens}).item()
+            ref_upd = [a.detach() - b for a, b in
+                       zip(dp.tree_leaves(rp), before)]
+            _, ref_sec = _timed_steps(torch, rstep, rp, {"tokens": tokens}, 3)
+        ref_grads = ropt.grads
+        del rp, ropt, rstep
+
+        mp = convert.shard_params(params, cfg, mesh)
+        for leaf in dp.tree_leaves(mp):
+            leaf.requires_grad_()
+        mopt = _recording_adamw(torch, dp, mp)
+        batch = dp.shard_batch({"tokens": tokens}, mesh, "data")
+        with torch.enable_grad():
+            mstep = dp.make_train_step(
+                lambda p, b, c=c_mesh: tfm.loss_fn(p, b, c, mesh=mesh), mopt,
+                mesh, data_axis=("data", "seq"))
+            loss0 = mstep(mp, batch).item()
+            _step0_against(
+                torch, f"mesh bert-large B=8 S=512 bf16 {impl} over {mesh} "
+                f"({group.name()}), data_axis=('data', 'seq'),",
+                (ref_loss, ref_grads, ref_upd), before, loss0, mopt.grads,
+                dp.tree_leaves(mp), names,
+                ref_name=f"the mesh-free {ref_impl} step's", tol=tol)
+            more, sec = _timed_steps(torch, mstep, mp, batch, 3)
+            losses = [loss0] + more
+            line = (f"mesh bert-large {impl}: losses "
+                    f"{[round(x, 5) for x in losses]}")
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0], line)
+            print(line)
+            print(f"time mesh bert-large B=8 S=512 bf16 {impl} ({card}): "
+                  f"{sec * 1e3:.2f} ms/step, {B * S / sec:.1f} tokens/s over "
+                  f"the mesh; mesh-free {ref_impl} {ref_sec * 1e3:.2f} "
+                  f"ms/step, {B * S / ref_sec:.1f} tokens/s (3 steps each, "
+                  f"after step 0)")
+            profile_line(torch, f"mesh bert-large B=8 S=512 bf16 {impl} step",
+                         lambda: mstep(mp, batch))
+        del mp, mopt, mstep, ref_grads, ref_upd
+        torch.cuda.empty_cache()
+
+
+# (b) of the mesh phase: the ring's flash step at p = 4 in one process,
+# longctx width, cut into four 1024-row blocks.
+RING_SHAPE, RING_P = (1, 4096, 16, 64), 4
+
+
+def ring_reference(torch, fa):
+    """q, k, v and dO ``RING_SHAPE`` bf16 from a seed, and {causal:
+    (out, (dq, dk, dv))} of the port's flash_attention over the whole
+    sequence. Run outside any counted path: these launches compare."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qkvd = [torch.randn(RING_SHAPE, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(4)]
+    q, k, v, do = qkvd
+    ref = {}
+    for causal in (True, False):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            o = fa.flash_attention(*leaves, causal=causal)
+            grads = torch.autograd.grad(o, leaves, do)
+        ref[causal] = (o.detach(), grads)
+    return qkvd, ref
+
+
+def _ring_in_process(torch, ra, qkvd, layout, causal, inner):
+    """Every rank ``my`` of a ring of RING_P as it would run: the
+    module-level per-pair update for each src in ring order, on the
+    blocks of the whole q, k, v (striped first for that layout). Returns
+    the whole output and (dq, dk, dv) for dO."""
+    q, k, v, do = qkvd
+    p, n = RING_P, RING_SHAPE[1] // RING_P
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        qq, kk, vv = (ra.stripe_sequence(t, p) if layout == "striped" else t
+                      for t in leaves)
+        outs = []
+        for my in range(p):
+            acc = ra.init_acc(qq[:, my * n:(my + 1) * n], inner)
+            for i in range(p):
+                src = (my - i) % p
+                acc = ra.accumulate(
+                    acc, qq[:, my * n:(my + 1) * n],
+                    kk[:, src * n:(src + 1) * n],
+                    vv[:, src * n:(src + 1) * n], my, src, p, causal=causal,
+                    layout=layout, inner=inner,
+                    scale=1.0 / np.sqrt(RING_SHAPE[-1]))
+            outs.append(ra.finish(acc, inner, q.dtype))
+        out = torch.cat(outs, 1)
+        if layout == "striped":
+            out = ra.unstripe_sequence(out, p)
+        grads = torch.autograd.grad(out, leaves, do)
+    return out.detach(), grads
+
+
+@contextlib.contextmanager
+def _plain_ring_flash(ra, fa):
+    """For the duration of a ``with``: the ring's flash step through the
+    kernels' plain versions on the card's tensors (``_FlashFn`` with impl
+    "plain") in place of the kernels."""
+    def lse(q, k, v, *, mode, sm_scale, block):
+        return fa._FlashFn.apply(q, k, v, "plain", mode, float(sm_scale),
+                                 fa._validate(q, k, v, block))
+
+    kernel = ra.flash_attention_lse
+    ra.flash_attention_lse = lse
+    try:
+        yield
+    finally:
+        ra.flash_attention_lse = kernel
+
+
+def _ring_errors(torch, got, want):
+    """(max |out - want| / (1 + |want|), the worst of dq, dk, dv's
+    |g - want| / |want|)."""
+    (o, grads), (wo, wgrads) = got, want
+    o_err = ((o.float() - wo.float()).abs()
+             / (1.0 + wo.float().abs())).max().item()
+    g_err = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(grads, wgrads))
+    return o_err, g_err
+
+
+def phase_ring(torch, fa, ra, qkvd, ref):
+    """(b) of the mesh phase: for both layouts and causal true and false,
+    the ring's flash step (B1 in mode none/diag/strict, B2 and B3 with a
+    nonzero dLSE from the LSE merge) and its einsum step, every (my, src)
+    pair of a ring of 4, held to flash over the whole sequence, and the
+    flash step to the same ring through the kernels' plain versions."""
+    counted = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    for w in counted:
+        for mode in w.mode_launches:
+            w.mode_launches[mode] = 0
+    t0 = time.perf_counter()
+    for layout in ("contiguous", "striped"):
+        for causal in (True, False):
+            want = ref[causal]
+            kern = _ring_in_process(torch, ra, qkvd, layout, causal, "flash")
+            with _plain_ring_flash(ra, fa):
+                plain = _ring_in_process(torch, ra, qkvd, layout, causal,
+                                         "flash")
+            einsum = _ring_in_process(torch, ra, qkvd, layout, causal,
+                                      "einsum")
+            errs = {"flash vs whole": _ring_errors(torch, kern, want),
+                    "flash vs plain": _ring_errors(torch, kern, plain),
+                    "einsum vs whole": _ring_errors(torch, einsum, want)}
+            line = (f"ring p={RING_P} in one process {list(RING_SHAPE)} bf16 "
+                    f"{layout} causal={causal}: " + "; ".join(
+                        f"{k}: out {o:.3g}, grads {g:.3g}"
+                        for k, (o, g) in errs.items())
+                    + f" (tol out {TOL_RING['out']}, grads "
+                    f"{TOL_RING['grad']})")
+            check(all(o <= TOL_RING["out"] and g <= TOL_RING["grad"]
+                      for o, g in errs.values()), line)
+            print(line)
+    torch.cuda.synchronize()
+    modes = [dict(w.mode_launches) for w in counted]
+    line = (f"ring p={RING_P} launches by mode: flash_fwd {modes[0]}, "
+            f"flash_bwd_dq {modes[1]}, flash_bwd_dkv {modes[2]} (expected "
+            f"{RING_MODES}); {time.perf_counter() - t0:.1f} s")
+    check(all(m == RING_MODES for m in modes), line)
+    print(line)
 
 
 def b4_bound_ms(R, C, dtype_name, same, spec):
@@ -1436,11 +1675,13 @@ def main():
     import horovod_tpu_torch.hvd as hvd
     from horovod_tpu_torch import _build, graft_entry
     from horovod_tpu_torch import parallel as dp
-    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.models import convert, resnet
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import torch_ops
+    # the module, which parallel/__init__ shadows with its function
+    ra = importlib.import_module("horovod_tpu_torch.parallel.ring_attention")
     from horovod_tpu_torch.serving import kv_cache, loop
 
     counters = {"flash_fwd": fa.flash_fwd_cuda,
@@ -1525,6 +1766,15 @@ def main():
         hvd_ran, _ = run_path("hvd", lambda: phase_hvd(
             torch, tfm, dp, hvd, torch_ops, params, cfg, card),
             ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+        ring_ref = ring_reference(torch, fa)
+
+        def mesh_phase():
+            phase_mesh(torch, tfm, convert, dp, hvd, params, cfg, card)
+            phase_ring(torch, fa, ra, *ring_ref)
+
+        mesh_ran, _ = run_path("mesh", mesh_phase,
+                               ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+        del ring_ref
         del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
@@ -1532,7 +1782,7 @@ def main():
             ["paired_reduce"])
     finally:
         hvd.shutdown()
-    paths = (served, trained, hvd_ran, resnet_ran)
+    paths = (served, trained, hvd_ran, mesh_ran, resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}

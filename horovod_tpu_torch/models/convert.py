@@ -2,7 +2,9 @@
 
 :func:`params_from_jax` takes the JAX params as nested numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` yields) and returns the port's
-nested dict of tensors with the same names and shapes.
+nested dict of tensors with the same names and shapes;
+:func:`shard_params` cuts this rank's shard out of such a tree for a
+mesh, and :func:`gather_params` puts the shards back together.
 :func:`resnet_from_flax` loads a flax ResNet's ``params`` and
 ``batch_stats`` into the port's ResNet module. Both packages then
 compute the same function, which is how the tests hold one against the
@@ -13,6 +15,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import torch_ops
+from .transformer import filter_specs, param_specs
 
 
 def params_from_jax(tree, device=None):
@@ -28,6 +32,58 @@ def params_from_jax(tree, device=None):
         return torch.tensor(np.asarray(x), device=device)
 
     return conv(tree)
+
+
+def _map_specs(fn, params, specs):
+    """``fn(leaf, spec)`` over a params tree and its spec tree (spec
+    leaves are tuples, so the two are walked together)."""
+    if isinstance(params, dict):
+        return {k: _map_specs(fn, params[k], specs[k]) for k in params}
+    if isinstance(params, (list, tuple)):
+        return [_map_specs(fn, p, s) for p, s in zip(params, specs)]
+    return fn(params, specs)
+
+
+def shard_params(params, cfg, mesh):
+    """This rank's shard of the whole transformer ``params`` (as
+    :func:`params_from_jax` makes them) under ``mesh``: every dim that
+    ``filter_specs(param_specs(cfg), mesh)`` names an axis for is cut into
+    that axis's size of equal blocks, and the rank keeps the block at its
+    coordinate: ``wqkv`` by heads, ``wo`` by its head rows, ``w_in`` by
+    columns, ``w_out`` by rows and ``embed`` by vocabulary rows over
+    ``model``. Returns new tensors, none a view of ``params``."""
+    coords = dict(zip(mesh.axis_names, mesh.coords()))
+
+    def take(x, spec):
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            n = mesh.shape[axis]
+            if x.shape[dim] % n != 0:
+                raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does "
+                                 f"not divide by the '{axis}' axis size {n}")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, coords[axis] * size, size)
+        return x.clone(memory_format=torch.contiguous_format)
+
+    return _map_specs(take, params,
+                      filter_specs(param_specs(cfg), mesh))
+
+
+def gather_params(params, cfg, mesh):
+    """The inverse of :func:`shard_params`: the whole tree, on every rank,
+    from each rank's shard (all-gathers over the mesh's axis groups; a
+    collective). Not differentiable."""
+    def put(x, spec):
+        x = x.detach()
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                x = torch_ops.allgather(x.movedim(dim, 0),
+                                        mesh.group(axis)).movedim(0, dim)
+        return x.contiguous()
+
+    return _map_specs(put, params,
+                      filter_specs(param_specs(cfg), mesh))
 
 
 def _flat(tree, prefix=""):

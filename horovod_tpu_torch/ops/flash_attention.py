@@ -278,11 +278,13 @@ def flash_fwd_cuda(q, k, v, mode, sm_scale, variant=None):
     _check_launch(lib, "flash_fwd", err, dev)
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.variant_launches[variant] += 1
+    flash_fwd_cuda.mode_launches[mode] += 1
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.variant_launches = dict.fromkeys(_FWD_VARIANTS, 0)
+flash_fwd_cuda.mode_launches = dict.fromkeys(MODES, 0)
 
 
 # B2's and B3's kernels in csrc/flash_bwd.cu take B1's variant ids.
@@ -360,7 +362,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale,
     current stream: dQ ``[B, S, H, D]`` in q's dtype. ``variant`` names
     the kernel (:data:`_BWD_VARIANTS`); by default :func:`_bwd_variant`
     picks it. Counts each launch in ``flash_bwd_dq_cuda.launches`` and,
-    by variant, in ``flash_bwd_dq_cuda.variant_launches``."""
+    by variant and by mask mode, in ``flash_bwd_dq_cuda.variant_launches``
+    and ``.mode_launches``."""
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
     variant = _pick_variant("flash_bwd_dq", variant, _bwd_takes,
                             _bwd_variant, q, k, v, do)
@@ -377,6 +380,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mode, sm_scale,
     _check_launch(lib, "flash_bwd_dq", err, q.device)
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.variant_launches[variant] += 1
+    flash_bwd_dq_cuda.mode_launches[mode] += 1
     return dq
 
 
@@ -385,8 +389,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale,
     """Launch B3 (``csrc/flash_bwd.cu`` ``hvd_flash_bwd_dkv``) on the
     current stream: (dK, dV) ``[B, S, H, D]`` in k's and v's dtype.
     ``variant`` as in :func:`flash_bwd_dq_cuda`. Counts each launch in
-    ``flash_bwd_dkv_cuda.launches`` and, by variant, in
-    ``flash_bwd_dkv_cuda.variant_launches``."""
+    ``flash_bwd_dkv_cuda.launches`` and, by variant and by mask mode, in
+    ``flash_bwd_dkv_cuda.variant_launches`` and ``.mode_launches``."""
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
     variant = _pick_variant("flash_bwd_dkv", variant, _bwd_takes,
                             _bwd_variant, q, k, v, do)
@@ -404,13 +408,16 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mode, sm_scale,
     _check_launch(lib, "flash_bwd_dkv", err, q.device)
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.variant_launches[variant] += 1
+    flash_bwd_dkv_cuda.mode_launches[mode] += 1
     return dk, dv
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.variant_launches = dict.fromkeys(_BWD_VARIANTS, 0)
+flash_bwd_dq_cuda.mode_launches = dict.fromkeys(MODES, 0)
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.variant_launches = dict.fromkeys(_BWD_VARIANTS, 0)
+flash_bwd_dkv_cuda.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, mode, sm_scale):

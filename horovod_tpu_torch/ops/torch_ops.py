@@ -95,17 +95,29 @@ def allreduce(x, group, op=Average):
     return allreduce_(_fresh(x), group, op)
 
 
-def _exchange(x, group, peer):
-    """``peer``'s ``x`` for this rank's: the lower rank sends first, so a
-    backend that holds a send until its receive is posted (NCCL) cannot
-    deadlock."""
+def sendrecv(x, group, dst, src):
+    """Send ``x`` to group rank ``dst`` and return the tensor group rank
+    ``src`` sends, as one batch (what ``dist.batch_isend_irecv`` does,
+    on the group's own backend object, which need not be registered):
+    NCCL coalesces the pair into one group call, gloo posts both before
+    waiting on either, so no order of the ranks can deadlock. The ring's
+    rotation and Adasum's exchange."""
+    x = x.contiguous()
     got = torch.empty_like(x)
-    if group.rank() < peer:
-        _run(group.send, [x], peer, 0)
-        _run(group.recv, [got], peer, 0)
-    else:
-        _run(group.recv, [got], peer, 0)
-        _run(group.send, [x], peer, 0)
+    coalesce = group.supports_coalescing
+    try:
+        if coalesce:
+            group._start_coalescing()
+        works = [group.send([x], dst, 0), group.recv([got], src, 0)]
+        if coalesce:
+            works = [group._end_coalescing()]
+    except dist.DistError as e:
+        raise HorovodInternalError(f"collective failed: {e}") from e
+    for work in works:
+        try:
+            work.wait()
+        except RuntimeError as e:
+            raise HorovodInternalError(f"collective failed: {e}") from e
     return got
 
 
@@ -125,7 +137,8 @@ def adasum(x, group):
     v = x.contiguous()
     level = 1
     while level < n:
-        b = _exchange(v, group, group.rank() ^ level)
+        peer = group.rank() ^ level
+        b = sendrecv(v, group, peer, peer)
         vf, bf = v.float().reshape(-1), b.float().reshape(-1)
         ab, aa, bb = vf.dot(bf), vf.dot(vf), bf.dot(bf)
         one = torch.ones_like(ab)

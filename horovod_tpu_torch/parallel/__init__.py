@@ -1,7 +1,7 @@
-"""Data parallelism and meshes over ``torch.distributed`` process groups:
-the port of ``horovod_tpu/parallel/`` as far as it is done. Ring
-attention, Ulysses, tensor, expert and pipeline parallelism come in
-later slices (ROADMAP Queue A).
+"""Data, tensor and sequence parallelism and meshes over
+``torch.distributed`` process groups: the port of
+``horovod_tpu/parallel/`` as far as it is done. Expert and pipeline
+parallelism come in later slices (ROADMAP Queue A).
 """
 
 from .data_parallel import (  # noqa: F401
@@ -13,3 +13,23 @@ from .data_parallel import (  # noqa: F401
     tree_leaves,
 )
 from .mesh import Mesh, World, create_mesh, mesh_axis_size  # noqa: F401
+from .ring_attention import (  # noqa: F401
+    make_ring_attention,
+    ring_attention,
+    stripe_sequence,
+    unstripe_sequence,
+)
+from .sharding import (  # noqa: F401
+    all_to_all,
+    copy_to,
+    gather,
+    gather_replicated,
+    reduce_from,
+    ring_blocks,
+)
+from .ulysses import (  # noqa: F401
+    heads_to_seq,
+    make_ulysses_attention,
+    seq_to_heads,
+    ulysses_attention,
+)
