@@ -66,7 +66,21 @@ Phases (each prints its lines; any failure exits non-zero):
    sequence, the flash step also to the same ring through the kernels'
    plain versions, and the einsum step to the whole sequence; B1's,
    B2's and B3's launches by mask mode;
-7. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+7. moe: (a) ``make_moe_layer`` (parallel/expert_parallel.py) at
+   bench.py's card shape T=4096, D=1024, F=4096, E=8, bf16, over a
+   one-rank ``{"expert": 1}`` mesh, dense and ragged, against a plain
+   dense routing at a generous capacity, at capacity 1.25 and under
+   skewed routing with the dropped tokens' rows zero and the same tokens
+   dropped by both, ``hvd.ep_stats()``, tokens/s; (b) bert-large widths
+   with 8 experts in each of MOE_LAYERS layers through ``loss_fn(mesh=
+   ...)`` over ``{"data": 1, "expert": 1}``, step 0 (loss, every
+   gradient and update) held to the mesh-free MoE step, a falling loss,
+   tokens/s beside the mesh-free step, peak device memory, a profile;
+   (c) the same widths with ``expert_axis="data"`` over ``{"data": 1}``
+   at MOE_DP_EP_LAYERS layers, the experts gathered over data and the
+   leaves cut over it left out of its all-reduce, step 0 held to the
+   mesh-free step;
+8. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -74,7 +88,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-8. one JSON line of kernels, then the result line.
+9. one JSON line of kernels, then the result line.
 
 The kernel phase 1 also holds B4 (csrc/paired_reduce.cu) against its
 plain version at every (R, C) a ResNet-50 step gives it, at ragged
@@ -82,8 +96,8 @@ shapes and on an unaligned pointer, bf16 and f32, as (x, x) and (dy, x),
 checks that two launches give the same bits, and times the kernel, the
 plain version and torch's own batch-norm reductions (yardsticks only).
 
-Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh)
-and 7 (ResNet training) are the main paths: each starts with every
+Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh),
+7 (MoE) and 8 (ResNet training) are the main paths: each starts with every
 kernel's launch count at 0 and must launch the kernels it runs, every
 bf16 launch of B1, B2 and B3 on its TMA/wgmma kernel. The card has one
 device and NCCL takes one rank per device, so every NCCL group here has
@@ -691,6 +705,35 @@ def phase_kernel(torch, fa, spec):
                 worst[names[var]] = max(worst[names[var]], err_o)
         del q, k, v, po, plse
 
+    # K/V expanded over B or H: stride 0, which no TMA map takes; the
+    # rule must send them to mma, which reads them as they lie.
+    q = torch.randn((2, 24, 3, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    base = torch.randn((2, 24, 3, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    atol, rtol = TOL_O["bfloat16"]
+    for over, kv in (("B", base[:1].expand(2, 24, 3, 64)),
+                     ("H", base[:, :, :1].contiguous().expand(2, 24, 3, 64))):
+        pick = fa._fwd_variant(q, kv, kv)
+        check(pick == "mma", f"flash_fwd with K/V expanded over {over} "
+              f"(strides {kv.stride()}) would take {pick!r}")
+        for mode in fa.MODES:
+            po, plse = fa._flash_plain(q, kv, kv, mode, 0.125,
+                                       fa._validate(q, kv, kv, 512))
+            o, lse = fa.flash_fwd_cuda(q, kv, kv, mode, 0.125)
+            torch.cuda.synchronize()
+            diff = (o.float() - po.float()).abs()
+            err_l = (lse - plse).abs().max().item()
+            line = (f"kernel flash_fwd[{pick}] [2, 24, 3, 64] bf16 {mode} "
+                    f"K/V expanded over {over} (strides {kv.stride()}): "
+                    f"max|O-plain| {diff.max().item():.3g} (tol {atol} + "
+                    f"{rtol}|O|), max|LSE-plain| {err_l:.3g} (tol "
+                    f"{TOL_LSE})")
+            check(bool((diff <= atol + rtol * po.float().abs()).all())
+                  and err_l <= TOL_LSE, line)
+            print(line)
+    del q, base
+
     timings = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in [(8, 512, 16, 64), (1, 4096, 16, 64)]:
@@ -1118,9 +1161,10 @@ def _step0_against(torch, label, ref, before, loss, grads, after, names,
     their names and how many are bit-equal. A ``tol`` without "update"
     gates no update."""
     ref_loss, ref_grads, ref_upd = ref
-    g_rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
-             for a, b in zip(grads, ref_grads)]
-    u_rel = [((a - b0 - u).norm() / u.norm()).item()
+    # the reference may wait on the host: one leaf at a time on the card
+    g_rel = [((a.float() - b.to(a.device).float()).norm()
+              / b.float().norm()).item() for a, b in zip(grads, ref_grads)]
+    u_rel = [((a - b0 - u.to(a.device)).norm() / u.norm()).item()
              for a, b0, u in zip(after, before, ref_upd)]
     g, u = (max(range(len(r)), key=r.__getitem__) for r in (g_rel, u_rel))
     dl = abs(loss - ref_loss)
@@ -1395,6 +1439,275 @@ def phase_ring(torch, fa, ra, qkvd, ref):
             f"{RING_MODES}); {time.perf_counter() - t0:.1f} s")
     check(all(m == RING_MODES for m in modes), line)
     print(line)
+
+
+# The moe phase. (a): make_moe_layer at bench.py::_bench_moe's card shape
+# (T tokens of width D, E experts of hidden F, bf16 tokens and weights at
+# scale 0.02, float32 logits) over a one-rank NCCL {"expert": 1} mesh.
+MOE_SHAPE = dict(T=4096, D=1024, F=4096, E=8)
+# The layer against a plain dense routing (every token through its
+# argmax expert in float32, gate-weighted, no rounding on the way) on
+# the rows it keeps: the layer rounds each expert's output and its own
+# output to bf16 (2^-9 relative each) and sums in float32 in another
+# order: |out - ref| <= 1e-3 + 1e-2 |ref|. A dropped row must be 0.
+TOL_MOE = (1e-3, 1e-2)
+# (b): bert-large widths with the bench's E experts in every layer,
+# through loss_fn(mesh=) over {"data": 1, "expert": 1}, held to the
+# mesh-free step with the mesh phase's flash gates (TOL_MESH_FLASH). All
+# 24 layers: the two steps run one after the other, each with its copy of
+# the 1.74 G parameters, AdamW's two moments, the gradients and the dense
+# MoE's [B, S, E, F] bf16 activations (~0.8 GB a layer), 46.8 GiB at the
+# peak as measured on an H100 80GB HBM3; the reference's gradients and
+# updates wait on the host.
+MOE_LAYERS = 24
+# (c): the dp=ep layout (expert_axis="data", __graft_entry__'s reuse) at
+# the same widths over {"data": 1}: each rank all-gathers the experts over
+# data, and make_train_step leaves the leaves that shard_params marks as
+# cut over data out of data's all-reduce. Step 0 only, a few layers.
+MOE_DP_EP_LAYERS = 2
+
+
+def _moe_expert_fn(torch, w_in, w_out):
+    """make_moe_layer's expert: gelu(x @ w_in) @ w_out in float32."""
+    def expert_fn(buf):
+        h = torch.einsum("end,edf->enf", buf.float(), w_in.float())
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+        return torch.einsum("enf,efd->end", h, w_out.float()).to(buf.dtype)
+    return expert_fn
+
+
+def _moe_reference(torch, x, logits, w_in, w_out):
+    """(every token through its argmax expert, gate-weighted, in float32;
+    the experts' indices)."""
+    probs = torch.softmax(logits.float(), -1)
+    eidx = probs.argmax(-1)
+    gate = probs.gather(1, eidx[:, None])
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(w_in.shape[0]):
+        rows = eidx == e
+        h = torch.nn.functional.gelu(x[rows].float() @ w_in[e].float(),
+                                     approximate="tanh")
+        out[rows] = (h @ w_out[e].float()) * gate[rows]
+    return out, eidx
+
+
+def _moe_kept(torch, eidx, E, capacity):
+    """The tokens a queue of ``capacity`` slots an expert keeps, in token
+    order (plain)."""
+    pos = torch.nn.functional.one_hot(eidx, E).cumsum(0) - 1
+    return pos.gather(1, eidx[:, None])[:, 0] < capacity
+
+
+def _moe_check(torch, label, out, ref, kept):
+    """``out`` against ``ref`` on the kept rows, zero on the others."""
+    atol, rtol = TOL_MOE
+    got = out.float()
+    zero = ~(got != 0).any(-1)
+    diff = (got - ref).abs()[kept]
+    line = (f"moe {label}: {int(kept.sum())} of {kept.numel()} tokens kept,"
+            f" {int(zero.sum())} rows zero; kept rows max|out-ref| "
+            f"{diff.max().item():.3g} (tol {atol} + {rtol}|ref|)")
+    check(bool(torch.isfinite(got).all()) and torch.equal(zero, ~kept)
+          and bool((diff <= atol + rtol * ref.abs()[kept]).all()), line)
+    print(line)
+    return zero
+
+
+def phase_moe_layer(torch, dp, hvd, card):
+    """(a) of the moe phase: make_moe_layer, dense and ragged, at the
+    bench's card shape over a one-rank NCCL {"expert": 1} mesh."""
+    T, D, F_, E = (MOE_SHAPE[k] for k in "TDFE")
+    mesh = hvd.global_mesh({"expert": 1})
+    group = mesh.group("expert")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    w_in, w_out = randn(E, D, F_, scale=0.02), randn(E, F_, D, scale=0.02)
+    x, logits = randn(T, D), randn(T, E, dtype=torch.float32)
+    expert_fn = _moe_expert_fn(torch, w_in, w_out)
+
+    def layer(cf, ragged):
+        return dp.make_moe_layer(mesh, "expert", w_in, w_out,
+                                 capacity_factor=cf, ragged=ragged)
+
+    # A generous capacity: nothing dropped, the dense routing. Ragged at
+    # capacity_factor=E would hold a [T*E, E, T*E] one-hot (8.6 G
+    # elements); its lossless capacities are T and T.
+    ref, eidx = _moe_reference(torch, x, logits, w_in, w_out)
+    every = torch.ones(T, dtype=torch.bool, device="cuda")
+    _moe_check(torch, f"dense make_moe_layer capacity_factor={E}",
+               layer(float(E), False)(x, logits), ref, every)
+    _moe_check(torch, "ragged dispatch peer_capacity=expert_capacity=T",
+               dp.moe_dispatch_combine_ragged(
+                   x, logits, expert_fn, group, peer_capacity=T,
+                   expert_capacity=T)[0], ref, every)
+
+    # The bench's capacity factor, 1.25: dense queues of C = T*1.25/E,
+    # ragged queues of C2 = (T*1.25)*1.25/E behind a peer slot of T*1.25.
+    C, C2 = int(T * 1.25 / E), int(int(T * 1.25) * 1.25 / E)
+    dense, ragged = layer(1.25, False), layer(1.25, True)
+    z_dense = _moe_check(torch, f"dense make_moe_layer capacity_factor=1.25"
+                         f" (C={C})", dense(x, logits), ref,
+                         _moe_kept(torch, eidx, E, C))
+    z_ragged = _moe_check(torch, f"ragged make_moe_layer capacity_factor="
+                          f"1.25 (C2={C2})", ragged(x, logits), ref,
+                          _moe_kept(torch, eidx, E, C2))
+    check(bool((z_ragged <= z_dense).all()),
+          "ragged dropped a token that dense kept")
+    # Skewed routing (__graft_entry__'s logits[:, 0] += 1.5): expert 0
+    # overflows; dense and a ragged dispatch with the dense queue's
+    # capacity must drop the same tokens.
+    skew = logits.clone()
+    skew[:, 0] += 1.5
+    sref, seidx = _moe_reference(torch, x, skew, w_in, w_out)
+    kept = _moe_kept(torch, seidx, E, C)
+    z1 = _moe_check(torch, f"skewed dense make_moe_layer capacity_factor="
+                    f"1.25 (C={C})", dense(x, skew), sref, kept)
+    z2 = _moe_check(torch, f"skewed ragged dispatch expert_capacity={C}",
+                    dp.moe_dispatch_combine_ragged(
+                        x, skew, expert_fn, group, capacity_factor=1.25,
+                        expert_capacity=C)[0], sref, kept)
+    check(torch.equal(z1, z2) and int(z1.sum()) > 0,
+          "skewed dense and ragged dropped other tokens")
+    reports = hvd.ep_stats()
+    check(reports[0] == 4, f"hvd.ep_stats() after four layer calls: "
+          f"{reports}")
+    print(f"moe hvd.ep_stats() (reports, tokens, dropped, last fraction): "
+          f"{reports}")
+
+    times = {name: time_ms(torch, lambda f=f: f(x, logits), 10)
+             for name, f in (("dense", dense), ("ragged", ragged))}
+    print(f"time moe make_moe_layer T={T} D={D} F={F_} E={E} bf16 "
+          f"capacity_factor=1.25 over {mesh} ({group.name()}; {card}): "
+          + ", ".join(f"{k} {ms:.3f} ms, {T / ms * 1e3:.1f} tokens/s"
+                      for k, ms in times.items()))
+
+
+def phase_moe_mesh(torch, tfm, convert, dp, hvd, card):
+    """(b) of the moe phase: the MoE transformer at bert-large widths
+    through loss_fn(mesh=...) over {"data": 1, "expert": 1}, step 0 held
+    to the mesh-free MoE step from the same parameters and batch."""
+    cfg = dataclasses.replace(tfm.bert_large(), n_experts=MOE_SHAPE["E"],
+                              n_layers=MOE_LAYERS, attn_impl="flash")
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(19), device="cuda")
+    group = hvd.global_process_set.group
+    mesh = hvd.global_mesh({"data": 1, "expert": 1})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                     generator=gen, device="cuda")}
+    B, S = 8, 512
+    names = [n for n, _ in dp.tree_flatten_with_path(params)]
+    before = dp.tree_leaves(params)
+    n_params = sum(x.numel() for x in before)
+    torch.cuda.reset_peak_memory_stats()
+
+    # The mesh-free step; its gradients and updates wait on the host.
+    rp = _trainable(torch, params)
+    ropt = _recording_adamw(torch, dp, rp)
+    with torch.enable_grad():
+        rstep = dp.make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), ropt,
+                                   group)
+        ref_loss = rstep(rp, batch).item()
+        ref_upd = [(a.detach() - b).cpu() for a, b in
+                   zip(dp.tree_leaves(rp), before)]
+        ref_grads = [g.cpu() for g in ropt.grads]
+        ropt.grads = []
+        _, ref_sec = _timed_steps(torch, rstep, rp, batch, 3)
+    del rp, ropt, rstep
+    torch.cuda.empty_cache()
+
+    mp = convert.shard_params(params, cfg, mesh)
+    for leaf in dp.tree_leaves(mp):
+        leaf.requires_grad_()
+    mopt = _recording_adamw(torch, dp, mp)
+    mbatch = dp.shard_batch(batch, mesh, "data")
+    with torch.enable_grad():
+        mstep = dp.make_train_step(
+            lambda p, b: tfm.loss_fn(p, b, cfg, mesh=mesh), mopt, mesh,
+            data_axis=("data",))
+        loss0 = mstep(mp, mbatch).item()
+        _step0_against(
+            torch, f"moe bert-large E={cfg.n_experts} L={cfg.n_layers} B=8 "
+            f"S=512 bf16 flash over {mesh} ({group.name()}),",
+            (ref_loss, ref_grads, ref_upd), before, loss0, mopt.grads,
+            dp.tree_leaves(mp), names, ref_name="the mesh-free MoE step's",
+            tol=TOL_MESH_FLASH)
+        mopt.grads = []
+        del ref_grads, ref_upd
+        more, sec = _timed_steps(torch, mstep, mp, mbatch, 3)
+        losses = [loss0] + more
+        line = f"moe bert-large: losses {[round(x, 5) for x in losses]}"
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], line)
+        print(line)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"time moe bert-large E={cfg.n_experts} L={cfg.n_layers} "
+              f"({n_params / 1e9:.3f} G params) B=8 S=512 bf16 flash "
+              f"({card}): {sec * 1e3:.2f} ms/step, {B * S / sec:.1f} "
+              f"tokens/s over the mesh; mesh-free {ref_sec * 1e3:.2f} "
+              f"ms/step, {B * S / ref_sec:.1f} tokens/s (3 steps each, after "
+              f"step 0); peak device memory {peak:.1f} GiB")
+        profile_line(torch, "moe bert-large B=8 S=512 bf16 flash mesh step",
+                     lambda: mstep(mp, mbatch))
+    del mp, mopt, mstep, params, before
+    torch.cuda.empty_cache()
+
+
+def phase_moe_dp_ep(torch, tfm, convert, dp, hvd, card):
+    """(c) of the moe phase: the MoE transformer with ``expert_axis="data"``
+    over {"data": 1}, MOE_DP_EP_LAYERS deep: the experts gathered over
+    ``data`` and the leaves cut over it kept out of its all-reduce; step 0
+    held to the mesh-free step from the same parameters and batch."""
+    cfg = dataclasses.replace(tfm.bert_large(), n_experts=MOE_SHAPE["E"],
+                              n_layers=MOE_DP_EP_LAYERS, attn_impl="flash",
+                              expert_axis="data")
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(23), device="cuda")
+    group = hvd.global_process_set.group
+    mesh = hvd.global_mesh({"data": 1})
+    check(tfm._expert_plan(cfg, mesh)[0] is not None,
+          f"expert_axis='data' over {mesh}: no gather group for the experts")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                     generator=gen, device="cuda")}
+    names = [n for n, _ in dp.tree_flatten_with_path(params)]
+    before = dp.tree_leaves(params)
+
+    rp = _trainable(torch, params)
+    ropt = _recording_adamw(torch, dp, rp)
+    with torch.enable_grad():
+        rstep = dp.make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), ropt,
+                                   group)
+        ref_loss = rstep(rp, batch).item()
+    ref = (ref_loss, ropt.grads,
+           [a.detach() - b for a, b in zip(dp.tree_leaves(rp), before)])
+    del rp, ropt, rstep
+
+    mp = convert.shard_params(params, cfg, mesh)
+    cut = [n for n, x in dp.tree_flatten_with_path(mp)
+           if "data" in dp.mesh.leaf_spec(x)]
+    check(len(cut) == 2 * cfg.n_layers
+          and all(n.endswith(("['w_in']", "['w_out']")) for n in cut),
+          f"leaves shard_params marks as cut over data: {cut}")
+    for leaf in dp.tree_leaves(mp):
+        leaf.requires_grad_()
+    mopt = _recording_adamw(torch, dp, mp)
+    with torch.enable_grad():
+        mstep = dp.make_train_step(
+            lambda p, b: tfm.loss_fn(p, b, cfg, mesh=mesh), mopt, mesh,
+            data_axis=("data",))
+        loss0 = mstep(mp, dp.shard_batch(batch, mesh, "data")).item()
+    _step0_against(
+        torch, f"moe dp=ep bert-large E={cfg.n_experts} L={cfg.n_layers} "
+        f"B=8 S=512 bf16 flash over {mesh} ({group.name()}; {len(cut)} "
+        f"expert leaves cut over data),", ref, before, loss0, mopt.grads,
+        dp.tree_leaves(mp), names, ref_name="the mesh-free MoE step's",
+        tol=TOL_MESH_FLASH)
+    del mp, mopt, mstep, params, before, ref
+    torch.cuda.empty_cache()
 
 
 def b4_bound_ms(R, C, dtype_name, same, spec):
@@ -1775,6 +2088,14 @@ def main():
         mesh_ran, _ = run_path("mesh", mesh_phase,
                                ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
         del ring_ref
+
+        def moe_phase():
+            phase_moe_layer(torch, dp, hvd, card)
+            phase_moe_mesh(torch, tfm, convert, dp, hvd, card)
+            phase_moe_dp_ep(torch, tfm, convert, dp, hvd, card)
+
+        moe_ran, _ = run_path("moe", moe_phase,
+                              ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
         del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
@@ -1782,7 +2103,7 @@ def main():
             ["paired_reduce"])
     finally:
         hvd.shutdown()
-    paths = (served, trained, hvd_ran, mesh_ran, resnet_ran)
+    paths = (served, trained, hvd_ran, mesh_ran, moe_ran, resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}

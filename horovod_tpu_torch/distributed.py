@@ -19,6 +19,7 @@ service hosted by the elastic driver) comes with the port of
 
 import datetime
 import os
+import threading
 
 import numpy as np
 import torch
@@ -31,12 +32,44 @@ from .process_sets import global_process_set
 from .tree import tree_leaves, tree_map
 
 
+class _EpGauges:
+    """The expert-dispatch counters of the C++ core's gauge plane
+    (``horovod_tpu/csrc/core.cc`` ``hvd_ep_report``/``hvd_ep_stats``),
+    in this process: dispatches reported, tokens, dropped tokens, and the
+    last dropped fraction, kept in units of 1e-6 as the core keeps it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._reports = self._tokens = self._dropped = self._last_micro = 0
+
+    def report(self, dropped_fraction, tokens, dropped_tokens):
+        tokens, dropped_tokens = int(tokens), int(dropped_tokens)
+        if tokens < 0 or dropped_tokens < 0 or dropped_tokens > tokens:
+            raise ValueError(f"invalid ep report: tokens={tokens!r} "
+                             f"dropped={dropped_tokens!r}")
+        micro = float(dropped_fraction) * 1e6
+        # llround: half away from zero
+        micro = int(abs(micro) + 0.5) * (1 if micro >= 0 else -1)
+        with self._lock:
+            self._reports += 1
+            self._tokens += tokens
+            self._dropped += dropped_tokens
+            self._last_micro = micro
+        return 0
+
+    def stats(self):
+        with self._lock:
+            return (self._reports, self._tokens, self._dropped,
+                    self._last_micro / 1e6)
+
+
 class _Job:
     def __init__(self, world, local_rank, local_size, cross_rank,
                  cross_size):
         self.world = world
         self.local_rank, self.local_size = local_rank, local_size
         self.cross_rank, self.cross_size = cross_rank, cross_size
+        self.ep = _EpGauges()
 
 
 _job = None
@@ -109,6 +142,22 @@ def _check():
 
 def is_initialized():
     return _job is not None
+
+
+def ep_report(dropped_fraction, tokens, dropped_tokens):
+    """Publish one expert-dispatch capacity report (``basics.py:692``):
+    the tokens the router saw, the tokens the capacity clamp dropped, and
+    the dropped fraction; returns 0. Raises ``ValueError`` before
+    :func:`init` and for a report with a negative count or more dropped
+    than seen."""
+    return _check().ep.report(dropped_fraction, tokens, dropped_tokens)
+
+
+def ep_stats():
+    """``(reports, tokens, dropped_tokens, last_dropped_fraction)`` of
+    this job's :func:`ep_report` calls (``basics.py:707``); raises
+    ``ValueError`` before :func:`init`."""
+    return _check().ep.stats()
 
 
 def world():

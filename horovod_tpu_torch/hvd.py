@@ -26,6 +26,8 @@ from .compression import Compression  # noqa: F401
 from .distributed import (  # noqa: F401
     cross_rank,
     cross_size,
+    ep_report,
+    ep_stats,
     global_mesh,
     init,
     is_initialized,
@@ -65,7 +67,20 @@ from .process_sets import (  # noqa: F401
     global_process_set,
     remove_process_set,
 )
+from .parallel.mesh import cut_axes
 from .tree import tree_leaves
+
+
+def _refuse_cut(tensors, what):
+    """Raise for a tensor cut over mesh axes (``shard_params`` marks
+    it): it holds other values on other ranks, which a process set's
+    allreduce or broadcast would mix."""
+    for t in tensors:
+        if torch.is_tensor(t) and cut_axes(t):
+            raise ValueError(
+                f"{what} got a leaf cut over mesh axes {cut_axes(t)}: "
+                f"train a sharded tree with parallel.make_train_step and "
+                f"parallel.replicate over its Mesh")
 
 
 def broadcast_parameters(params, root_rank=0, process_set=global_process_set):
@@ -73,9 +88,11 @@ def broadcast_parameters(params, root_rank=0, process_set=global_process_set):
     optimizer built over the tensors keeps them; returns ``params``. Takes
     a tree of tensors (the port's params, a ``state_dict()``) or an
     iterable of them or of ``(name, tensor)`` pairs
-    (``named_parameters()``)."""
+    (``named_parameters()``). A leaf cut over mesh axes (``shard_params``)
+    raises."""
     if not isinstance(params, (dict, list, tuple)):
         params = list(params)
+    _refuse_cut(tree_leaves(params), "broadcast_parameters")
     for leaf in tree_leaves(params):
         if torch.is_tensor(leaf):
             t = leaf.detach()
@@ -99,6 +116,7 @@ class _DistributedOptimizer:
         self.backward_passes_per_step = int(backward_passes_per_step)
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
+        _refuse_cut(self._params, "DistributedOptimizer")
         # Decided and counted once, as make_train_step does.
         self._wire = _ops._wire_route(compression)
         self._acc, self._count = None, 0
@@ -146,7 +164,8 @@ def DistributedOptimizer(optimizer, op=Average, compression=None,
     in that dtype and casts it back, counted once in
     ``compression.stats()``. ``backward_passes_per_step=N`` accumulates N
     backward passes locally, in the wrapper (a ``zero_grad()`` between
-    them drops nothing), and reduces and steps on every N-th call."""
+    them drops nothing), and reduces and steps on every N-th call. A
+    parameter cut over mesh axes (``shard_params``) raises."""
     return _DistributedOptimizer(optimizer, op, compression, process_set,
                                  backward_passes_per_step)
 

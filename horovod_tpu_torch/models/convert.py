@@ -16,6 +16,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import torch_ops
+from ..parallel.mesh import set_leaf_spec
 from .transformer import filter_specs, param_specs
 
 
@@ -51,7 +52,11 @@ def shard_params(params, cfg, mesh):
     that axis's size of equal blocks, and the rank keeps the block at its
     coordinate: ``wqkv`` by heads, ``wo`` by its head rows, ``w_in`` by
     columns, ``w_out`` by rows and ``embed`` by vocabulary rows over
-    ``model``. Returns new tensors, none a view of ``params``."""
+    ``model``, and the experts over ``expert_axis``. Returns new tensors,
+    none a view of ``params``, each marked with its spec
+    (``parallel/mesh.py::set_leaf_spec``): ``make_train_step`` and
+    ``replicate`` then neither reduce nor broadcast a leaf over an axis it
+    is cut along."""
     coords = dict(zip(mesh.axis_names, mesh.coords()))
 
     def take(x, spec):
@@ -64,7 +69,8 @@ def shard_params(params, cfg, mesh):
                                  f"not divide by the '{axis}' axis size {n}")
             size = x.shape[dim] // n
             x = x.narrow(dim, coords[axis] * size, size)
-        return x.clone(memory_format=torch.contiguous_format)
+        return set_leaf_spec(x.clone(memory_format=torch.contiguous_format),
+                             spec)
 
     return _map_specs(take, params,
                       filter_specs(param_specs(cfg), mesh))

@@ -19,8 +19,11 @@ column-parallel, ``wo`` and ``w_out`` row-parallel), with the
 collectives that XLA inserts in the reference written out
 (``parallel/sharding.py``). Attention over a sequence-sharded mesh
 gathers K/V (``"gather"``) or rotates them on a ring (``"ring"``);
-``"flash"`` splits heads and batch only. Experts under a mesh are ROADMAP
-Queue A item 9.
+``"flash"`` splits heads and batch only. Experts are split over
+``expert`` (:func:`_expert_plan`): on an axis of its own, each rank runs
+its experts on the tokens it shares with the axis; on an axis that
+splits the tokens (``expert_axis="data"``, the reference's dp=ep reuse),
+each rank gathers the experts and runs all of them on its own tokens.
 """
 
 import contextlib
@@ -257,18 +260,60 @@ def _attention_ring(x, layer, cfg, seq_group, model_group=None):
     return _out(ctx, layer, cfg, model_group)
 
 
-def _moe_ffn(x, layer, cfg):
-    """Top-1 routed MoE, dense dispatch (einsum over one-hot masks)."""
+def _expert_plan(cfg, mesh):
+    """How this rank runs the MoE FFN under ``mesh``, whose
+    ``param_specs`` put ``w_in`` on ``(expert, None, model)`` and
+    ``w_out`` on ``(expert, model, None)`` (the reference leaves the
+    collectives to GSPMD): ``(gather_group, block, reduce_group)``.
+
+    - ``expert`` an axis of its own: the tokens are the same on every
+      rank of it, so each rank runs its block of experts (``block``, its
+      coordinate along ``expert``: columns ``[block * E_loc, (block + 1)
+      * E_loc)`` of the one-hot mask) and the partial outputs are summed
+      over ``expert`` and ``model`` in one reduction (``reduce_group``,
+      whose ``copy_to`` sums the input's gradient in the backward);
+    - ``expert`` an axis that splits the tokens (``data`` or ``seq``):
+      each rank all-gathers the experts over it (``gather_group``; the
+      backward reduce-scatters their gradient, which then sums every
+      rank's loss over that axis: ``make_train_step`` divides it by the
+      axis size instead of averaging it, as ``shard_params`` marks the
+      leaf cut over it) and runs all of them
+      on its own tokens;
+    - no ``expert`` axis: every expert on every rank.
+
+    ``w_in``'s columns and ``w_out``'s rows are split over ``model`` in
+    each case, and ``reduce_group`` includes ``model``."""
+    if mesh is None:
+        return None, 0, None
+    names, e, m = mesh.axis_names, cfg.expert_axis, cfg.model_axis
+    model = mesh.group(m) if m in names else None
+    if e not in names:
+        return None, 0, model
+    if e in (cfg.data_axis, cfg.seq_axis):
+        return mesh.group(e), 0, model
+    group = mesh.groups((e, m)) if m in names else mesh.group(e)
+    return None, mesh.coords()[names.index(e)], group
+
+
+def _moe_ffn(x, layer, cfg, mesh=None):
+    """Top-1 routed MoE, dense dispatch (einsum over one-hot masks); under
+    ``mesh`` see :func:`_expert_plan`."""
     dt = cfg.compute_dtype
+    gather_group, block, reduce_group = _expert_plan(cfg, mesh)
     gates = torch.einsum("bsd,de->bse", x, layer["router"].to(dt))
     gate_w = torch.softmax(gates.float(), -1)
     top = gate_w.argmax(-1)
     mask = F.one_hot(top, cfg.n_experts).to(dt)                  # [b,s,E]
     w = (gate_w.to(dt) * mask).sum(-1, keepdim=True)             # [b,s,1]
-    h = torch.einsum("bsd,edf->bsef", x, layer["w_in"].to(dt))
+    w_in = gather(layer["w_in"], gather_group, 0).to(dt)
+    w_out = gather(layer["w_out"], gather_group, 0).to(dt)
+    e_loc = w_in.shape[0]
+    mask = mask[..., block * e_loc:(block + 1) * e_loc]
+    h = torch.einsum("bsd,edf->bsef", copy_to(x, reduce_group), w_in)
     h = F.gelu(h, approximate="tanh")                            # jax.nn.gelu
-    y = torch.einsum("bsef,efd->bsed", h, layer["w_out"].to(dt))
-    return torch.einsum("bsed,bse->bsd", y, mask) * w
+    y = torch.einsum("bsef,efd->bsed", h, w_out)
+    return reduce_from(torch.einsum("bsed,bse->bsd", y, mask),
+                       reduce_group) * w
 
 
 def _ffn(x, layer, cfg, model_group=None):
@@ -324,10 +369,6 @@ def _check_mesh(cfg, impl, mesh, seq_len):
     collective; ``seq_len`` is the whole sequence."""
     if mesh is None:
         return
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "experts under a mesh (expert parallelism) are not ported yet: "
-            "ROADMAP Queue A item 9")
     s, m = cfg.seq_axis, cfg.model_axis
     seq = mesh.shape.get(s, 1)
     model = mesh.shape.get(m, 1)
@@ -370,7 +411,7 @@ def apply_block(layer, x, cfg: TransformerConfig, impl=None, mesh=None):
         x = x + _attention(h, layer, cfg, seq_group, model_group)
     h = _layer_norm(x, layer["ln2"])
     if cfg.n_experts > 0:
-        return x + _moe_ffn(h, layer, cfg)
+        return x + _moe_ffn(h, layer, cfg, mesh)
     return x + _ffn(h, layer, cfg, model_group)
 
 

@@ -217,11 +217,14 @@ def _check_launch(lib, fn, err, dev):
 _FWD_VARIANTS = {"fma": 0, "mma": 1, "tma": 2}
 
 
-def _aligned16(t):
-    """Every [B, S, H] row start of a bf16 ``[B, S, H, D]`` tensor on a
-    16-byte boundary: the pointer and the B, S and H strides."""
-    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0
-                                          for i in range(3))
+def _tma_ready(t):
+    """A bf16 ``[B, S, H, D]`` tensor that a TMA map takes as it lies:
+    every [B, S, H] row start on a 16-byte boundary (the pointer and the
+    B, S and H strides) and positive B, S and H strides (an expanded
+    zero has stride 0, which no map takes)."""
+    return (t.data_ptr() % 16 == 0
+            and all(t.stride(i) % 8 == 0 and t.stride(i) > 0
+                    for i in range(3)))
 
 
 def _fwd_takes(variant, q, k, v):
@@ -233,14 +236,15 @@ def _fwd_takes(variant, q, k, v):
         return q.dtype == torch.bfloat16
     return (variant == "tma" and q.dtype == torch.bfloat16
             and q.shape[-1] % 8 == 0
-            and all(_aligned16(t) for t in (q, k, v)))
+            and all(_tma_ready(t) for t in (q, k, v)))
 
 
 def _fwd_variant(q, k, v):
     """The B1 kernel a call takes, from dtype, shape, strides and
-    pointers alone: "tma" for bf16 with D % 8 == 0 and 16-byte aligned
-    rows (every call of the serving and training paths), "mma" for any
-    other bf16, "fma" for float32."""
+    pointers alone: "tma" for bf16 with D % 8 == 0 and q, k and v
+    :func:`_tma_ready` (every call of the serving and training paths),
+    "mma" for any other bf16 (an expanded K/V among them), "fma" for
+    float32."""
     if q.dtype == torch.float32:
         return "fma"
     return "tma" if _fwd_takes("tma", q, k, v) else "mma"
@@ -291,19 +295,12 @@ flash_fwd_cuda.mode_launches = dict.fromkeys(MODES, 0)
 _BWD_VARIANTS = _FWD_VARIANTS
 
 
-def _tma_ready(t):
-    """A bf16 ``[B, S, H, D]`` tensor that a TMA map takes as it lies:
-    every [B, S, H] row start on a 16-byte boundary and positive B, S
-    and H strides (an expanded zero has stride 0)."""
-    return _aligned16(t) and all(t.stride(i) > 0 for i in range(3))
-
-
 def _bwd_takes(variant, q, k, v, do):
     """Whether B2's and B3's ``variant`` takes q, k, v, dO (as
     :func:`_bwd_args` has made them): B1's rule for q, k, v, and for
-    "tma" every one of the four :func:`_tma_ready`."""
+    "tma" dO :func:`_tma_ready` too."""
     return _fwd_takes(variant, q, k, v) and (
-        variant != "tma" or all(_tma_ready(t) for t in (q, k, v, do)))
+        variant != "tma" or _tma_ready(do))
 
 
 def _bwd_variant(q, k, v, do):
@@ -336,8 +333,7 @@ def _bwd_args(q, k, v, do, lse, delta):
                    for t in (q, k, v, do.to(q.dtype)))
     # Where q, k and v would take the TMA kernels and dO alone would not
     # (stride 0, a row off 16 bytes), dO is copied so that they do.
-    if (_fwd_takes("tma", q, k, v) and all(map(_tma_ready, (q, k, v)))
-            and not _tma_ready(do)):
+    if _fwd_takes("tma", q, k, v) and not _tma_ready(do):
         do = do.clone(memory_format=torch.contiguous_format)
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 

@@ -182,25 +182,37 @@ def alltoall(x, group, split_axis=0, concat_axis=0):
     return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
-def ragged_alltoall(x, send_counts, group, capacity):
-    """Uneven alltoall in fixed slots (``jax_ops.py:131``).
-
-    ``x`` is ``[T, ...]`` rows grouped by destination, peer j's block
-    first; ``send_counts[j]`` rows go to peer j. Each destination's rows
-    are packed into a ``capacity``-row slot (rows past it are dropped),
-    the slots cross in one alltoall and the counts in another. Returns
-    ``(recv [P, capacity, ...], recv_counts [P] int32)``: block i holds
-    the first ``recv_counts[i]`` rows peer i sent, the rest zeros, and a
-    count is clamped to ``capacity`` (``:175-178``)."""
-    P, T = group.size(), x.shape[0]
+def ragged_pack(x, send_counts, capacity):
+    """``(slots [P, capacity, ...], counts [P] int32)``: the rows of
+    ``x`` (grouped by destination, peer j's ``send_counts[j]`` rows
+    first) packed one ``capacity``-row slot a peer, rows past a slot's
+    capacity dropped and the rest of a slot zeros (``jax_ops.py:160-168``).
+    Indexing and ``where`` only, so autograd takes it: a slot's gradient
+    goes back to the row that filled it, and a dropped row's is zero."""
+    P, T = send_counts.shape[0], x.shape[0]
     counts = send_counts.to(device=x.device, dtype=torch.int32)
     starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     slot = torch.arange(capacity, device=x.device, dtype=torch.int32)
     idx = (starts[:, None] + slot[None, :]).clamp(0, max(T - 1, 0))
     valid = slot[None, :] < counts[:, None]
-    buf = x[idx.long()]
     buf = torch.where(valid.reshape((P, capacity) + (1,) * (x.ndim - 1)),
-                      buf, torch.zeros((), dtype=x.dtype, device=x.device))
+                      x[idx.long()],
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    return buf, counts
+
+
+def ragged_alltoall(x, send_counts, group, capacity):
+    """Uneven alltoall in fixed slots (``jax_ops.py:131``).
+
+    ``x`` is ``[T, ...]`` rows grouped by destination, peer j's block
+    first; ``send_counts[j]`` rows go to peer j. Each destination's rows
+    are packed into a ``capacity``-row slot (rows past it are dropped;
+    :func:`ragged_pack`), the slots cross in one alltoall and the counts
+    in another. Returns ``(recv [P, capacity, ...], recv_counts [P]
+    int32)``: block i holds the first ``recv_counts[i]`` rows peer i
+    sent, the rest zeros, and a count is clamped to ``capacity``
+    (``:175-178``)."""
+    buf, counts = ragged_pack(x, send_counts, capacity)
     recv = torch.empty_like(buf)
     _run(group.alltoall_base, recv, buf.contiguous(), [], [])
     recv_counts = torch.empty_like(counts)

@@ -1,7 +1,7 @@
-"""Data, tensor and sequence parallelism and meshes over
+"""Data, tensor, sequence and expert parallelism and meshes over
 ``torch.distributed`` process groups: the port of
-``horovod_tpu/parallel/`` as far as it is done. Expert and pipeline
-parallelism come in later slices (ROADMAP Queue A).
+``horovod_tpu/parallel/`` as far as it is done. Pipeline parallelism
+comes in a later slice (ROADMAP Queue A).
 """
 
 from .data_parallel import (  # noqa: F401
@@ -11,6 +11,13 @@ from .data_parallel import (  # noqa: F401
     shard_batch,
     tree_flatten_with_path,
     tree_leaves,
+)
+from .expert_parallel import (  # noqa: F401
+    env_capacity_factor,
+    make_moe_layer,
+    moe_dispatch_combine,
+    moe_dispatch_combine_ragged,
+    report_dispatch,
 )
 from .mesh import Mesh, World, create_mesh, mesh_axis_size  # noqa: F401
 from .ring_attention import (  # noqa: F401
@@ -24,6 +31,7 @@ from .sharding import (  # noqa: F401
     copy_to,
     gather,
     gather_replicated,
+    ragged_all_to_all,
     reduce_from,
     ring_blocks,
 )

@@ -17,6 +17,7 @@ Params are a nested dict/list of leaf tensors. Their order is
 order the reference's bucket plan is built over.
 """
 
+import math
 import os
 
 import torch
@@ -26,7 +27,7 @@ from ..ops import torch_ops
 from ..ops.torch_ops import bucket_plan  # noqa: F401  (re-exported)
 from ..tree import (  # noqa: F401  (re-exported)
     tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten)
-from .mesh import Mesh
+from .mesh import Mesh, cut_axes, leaf_spec
 
 
 def _axes(data_axis):
@@ -40,6 +41,28 @@ def _groups(group, data_axis):
     if isinstance(group, Mesh):
         return [group.group(a) for a in _axes(data_axis)]
     return [group]
+
+
+def _reduced_over(leaves, group, data_axis):
+    """For each leaf, the indices into ``_groups(group, data_axis)`` of
+    the groups it is reduced and broadcast over: every one but those of
+    the axes it is cut along (``mesh.leaf_spec``, as ``shard_params``
+    marks it; the experts under ``expert_axis="data"`` hold other values
+    on each rank of ``data``). A plain process group names no axis, so a
+    cut leaf raises there."""
+    if isinstance(group, Mesh):
+        axes = _axes(data_axis)
+        return [tuple(j for j, a in enumerate(axes) if a not in leaf_spec(x))
+                for x in leaves]
+    if group is None:
+        return [()] * len(leaves)
+    for x in leaves:
+        if cut_axes(x):
+            raise ValueError(
+                f"a leaf cut over mesh axes {cut_axes(x)} holds other "
+                f"values on other ranks: reduce it over its Mesh, not a "
+                f"plain process group")
+    return [(0,)] * len(leaves)
 
 
 def make_train_step(loss_fn, optimizer, group=None, *, data_axis="data",
@@ -57,6 +80,13 @@ def make_train_step(loss_fn, optimizer, group=None, *, data_axis="data",
       or a :class:`~.mesh.Mesh`, averaged over each axis of
       ``data_axis`` (a name or a tuple of names) in turn; ``None`` for
       one rank. Params must start equal on every rank (``replicate``).
+      A leaf cut over a ``data_axis`` axis (``shard_params`` marks it;
+      the experts under ``expert_axis="data"``) holds other values on
+      each rank of it, and its gradient already sums every rank's loss
+      over it (the backward of the all-gather that used it): it is not
+      reduced over that axis, only divided by its size. The leaves of
+      each set of axes are reduced together, in buckets as below. A cut
+      leaf under a plain process group raises.
     - ``extra_reduce(grads) -> grads`` runs on the reduced gradients (a
       tree shaped as ``params``) before the optimizer.
     - ``accum_steps=N`` splits the batch's dim0 into N microbatches and
@@ -101,6 +131,22 @@ def make_train_step(loss_fn, optimizer, group=None, *, data_axis="data",
             _compression.record_wire_cast(False)
 
     groups = _groups(group, data_axis)
+    sizes = ([group.shape[a] for a in _axes(data_axis)]
+             if isinstance(group, Mesh) else [1] * len(groups))
+
+    def _reduce(leaves, grads):
+        sets = {}                # the groups each leaf is reduced over
+        for i, over in enumerate(_reduced_over(leaves, group, data_axis)):
+            sets.setdefault(over, []).append(i)
+        out = [None] * len(grads)
+        for over, idx in sets.items():   # one order on every rank
+            red = torch_ops.grouped_allreduce_(
+                [grads[i] for i in idx], [groups[j] for j in over], op,
+                bucket_bytes, wire_dtype)
+            n = math.prod(s for j, s in enumerate(sizes) if j not in over)
+            for i, g in zip(idx, red):
+                out[i] = g / n if n > 1 else g
+        return out
 
     def _mean(x):
         # A gradient may come out of autograd with permuted strides
@@ -141,8 +187,7 @@ def make_train_step(loss_fn, optimizer, group=None, *, data_axis="data",
     def step(params, batch):
         leaves = tree_leaves(params)
         loss, grads = _shard_grad(params, leaves, batch)
-        grads = torch_ops.grouped_allreduce_(grads, groups, op, bucket_bytes,
-                                             wire_dtype)
+        grads = _reduce(leaves, grads)
         if extra_reduce is not None:
             grads = tree_leaves(extra_reduce(tree_unflatten(params, grads)))
         for p, g in zip(leaves, grads):
@@ -186,9 +231,13 @@ def replicate(tree, group=None, data_axis="data"):
     """Give every rank the values of its group's rank 0 (over a Mesh: of
     each ``data_axis`` group in turn), in place (the reference's
     ``broadcast_parameters`` at the start of training); returns
-    ``tree``."""
-    for g in _groups(group, data_axis):
-        for leaf in tree_leaves(tree):
-            t = leaf.detach()
-            t.copy_(torch_ops.broadcast(t, g, 0))
+    ``tree``. A leaf cut over an axis (``shard_params`` marks it) is left
+    as it is over that axis, and raises under a plain process group."""
+    leaves = tree_leaves(tree)
+    over = _reduced_over(leaves, group, data_axis)
+    for j, g in enumerate(_groups(group, data_axis)):
+        for leaf, o in zip(leaves, over):
+            if j in o:
+                t = leaf.detach()
+                t.copy_(torch_ops.broadcast(t, g, 0))
     return tree

@@ -175,3 +175,24 @@ def create_mesh(axis_sizes=None, world=None):
 
 def mesh_axis_size(mesh, axis):
     return mesh.shape[axis]
+
+
+def set_leaf_spec(x, spec):
+    """Record on a param leaf the mesh axis each of its dims is cut over
+    (``None``: kept whole), as ``models/convert.py::shard_params`` cuts
+    it; returns ``x``. The train step and ``replicate`` read it back
+    (:func:`leaf_spec`), so the spec is written in one place."""
+    x.mesh_spec = tuple(spec)
+    return x
+
+
+def leaf_spec(x):
+    """The spec :func:`set_leaf_spec` recorded on ``x``; ``()`` (whole on
+    every rank) for a leaf it did not mark."""
+    return getattr(x, "mesh_spec", ())
+
+
+def cut_axes(x):
+    """The mesh axes a leaf is cut over: it holds other values on each
+    rank of them."""
+    return [a for a in leaf_spec(x) if a is not None]

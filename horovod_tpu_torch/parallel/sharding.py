@@ -146,6 +146,21 @@ def all_to_all(x, group, split_dim, concat_dim):
     return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
+def ragged_all_to_all(x, send_counts, group, capacity):
+    """``torch_ops.ragged_alltoall`` that autograd passes through: the
+    rows of ``x`` packed into one ``capacity``-row slot per peer
+    (``torch_ops.ragged_pack``) and exchanged by :func:`all_to_all`, the
+    counts by a plain alltoall (they have no gradient). The backward is
+    the adjoint: the slots' gradients go back over the same all-to-all
+    and are added into the rows that filled them; padding and dropped
+    rows get zero. Returns ``(recv [P, capacity, ...], recv_counts [P]
+    int32)``, a count clamped to ``capacity``."""
+    buf, counts = torch_ops.ragged_pack(x, send_counts, capacity)
+    if group is not None:
+        counts = torch_ops.alltoall(counts, group)
+    return all_to_all(buf, group, 0, 0), counts.clamp_max(capacity)
+
+
 def ring_blocks(x, group):
     """``(x of rank r, of rank r-1, ..., of rank r-p+1)`` on rank r of a
     ring of p: block i arrives by the i-th rotation, each rank sending to

@@ -115,6 +115,39 @@ def _jax(n, fn, *args):
     return jax.tree.map(np.asarray, run(*args))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_in_mesh(n):
+    """{(op, dtype): outputs stacked by rank} of every op of ``OPS`` and
+    ``ragged_alltoall`` in every dtype on ``_inputs``, in one jitted
+    ``shard_map`` over n devices (one compile, where one an op and dtype
+    would be thirty)."""
+    args = {}
+    for dtype, (jdt, _) in DTYPES.items():
+        x, counts = _inputs(n, dtype)
+        args[dtype] = (jnp.asarray(x, jdt), jnp.asarray(counts))
+
+    def every(args):
+        out = {}
+        for dtype, (v, c) in args.items():
+            for name, (jfn, _, dts, _) in OPS.items():
+                if dtype in dts:
+                    out[name, dtype] = jfn(v, "x")
+            out["ragged", dtype] = jax_ops.ragged_alltoall(v, c, "x",
+                                                           CAPACITY)
+        return out
+
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("x",))
+
+    @jax.jit
+    @functools.partial(shard_map, mesh=mesh, in_specs=P("x"),
+                       out_specs=P("x"), check_vma=False)
+    def run(args):
+        out = every(jax.tree.map(lambda v: v[0], args))
+        return jax.tree.map(lambda o: o[None], out)
+
+    return jax.tree.map(np.asarray, run(args))
+
+
 def _f32(t):
     return t.float().numpy()
 
@@ -145,17 +178,15 @@ def test_in_mesh_ops_equal_jax(n):
         return out
 
     ranks = run_worlds(n, body)
-    for dtype, (jdt, _) in DTYPES.items():
-        x, counts = _inputs(n, dtype)
-        jx = jnp.asarray(x, jdt)
-        for name, (jfn, _, dts, exact) in OPS.items():
+    jax_out = _jax_in_mesh(n)
+    for dtype in DTYPES:
+        for name, (_, _, dts, exact) in OPS.items():
             if dtype not in dts:
                 continue
-            want = _jax(n, lambda v: jfn(v, "x"), jx)
+            want = jax_out[name, dtype]
             for r in range(n):
                 _close(ranks[r][name, dtype], want[r], dtype, exact)
-        recv, rc = _jax(n, lambda v, c: jax_ops.ragged_alltoall(
-            v, c, "x", CAPACITY), jx, jnp.asarray(counts))
+        recv, rc = jax_out["ragged", dtype]
         for r in range(n):
             np.testing.assert_array_equal(ranks[r]["ragged", dtype][0],
                                           np.asarray(recv[r], np.float32))

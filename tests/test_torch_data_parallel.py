@@ -22,6 +22,7 @@ within 1e-5.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -49,10 +50,15 @@ TCFG = dataclasses.replace(ttfm.tiny(), dtype="float32", attn_impl="gather")
 TOKENS = np.random.default_rng(30).integers(0, 256, (4, 17), dtype=np.int32)
 
 
-@pytest.fixture(scope="module")
-def jax_params():
+@functools.lru_cache(maxsize=None)
+def _jax_params():
     return jax.jit(jtfm.init_params, static_argnums=1)(
         jax.random.PRNGKey(3), jtfm.tiny())
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return _jax_params()
 
 
 def _port_train(jax_params, group, steps=1, data_axis="data", **kw):
@@ -72,22 +78,60 @@ def _port_train(jax_params, group, steps=1, data_axis="data", **kw):
             for p, x in tree_flatten_with_path(params)}, losses
 
 
-def _jax_train(jax_params, steps=1, shape=None, data_axis="data", **kw):
-    shape = shape or {"data": 2}
-    devices = np.array(jax.devices()[:int(np.prod(list(shape.values())))])
-    mesh = Mesh(devices.reshape(tuple(shape.values())), tuple(shape))
+def _jax_hook(g):
+    """test_extra_reduce_equals_jax's hook on the reference's side."""
+    return dict(g, embed=-g["embed"], final_ln=jax.tree.map(
+        lambda v: 0.0 * v, g["final_ln"]))
+
+
+# Every reference step of this file (the JAX package's make_train_step
+# with these arguments, one step from the same params), by mesh. The
+# steps of one mesh run in one jitted program: one compile a mesh, where
+# one a case would be nine.
+JAX_CASES = {
+    (("data", 2),): {
+        **{f"accum {a}, buckets {b}": dict(accum_steps=a, bucket_bytes=b)
+           for a in (1, 2) for b in (0, 16 << 10)},
+        "bf16": dict(bucket_bytes=16 << 10,
+                     compression=jax_compression.Compression.bf16),
+        "adasum": dict(grad_reduce="adasum", bucket_bytes=16 << 10),
+        "extra_reduce": dict(extra_reduce=_jax_hook),
+    },
+    (("data", 4),): {
+        "adasum": dict(grad_reduce="adasum", bucket_bytes=16 << 10)},
+    (("data", 2), ("seq", 2)): {
+        "tuple": dict(data_axis=("data", "seq"))},
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_refs(shape):
+    """{case: (params after one step by path, [loss])} of every case of
+    ``JAX_CASES[shape]``."""
+    sizes = dict(shape)
+    devices = np.array(jax.devices()[:int(np.prod(list(sizes.values())))])
+    mesh = Mesh(devices.reshape(tuple(sizes.values())), tuple(sizes))
     tx = optax.adamw(1e-4)
-    step = jdp.make_train_step(lambda p, b: jtfm.loss_fn(p, b, JCFG), tx,
-                               mesh, data_axis=data_axis, donate=False, **kw)
-    params = jdp.replicate(jax_params, mesh)
-    state = jdp.replicate(tx.init(jax_params), mesh)
-    batch = jdp.shard_batch({"tokens": TOKENS}, mesh, data_axis)
-    losses = []
-    for _ in range(steps):
-        params, state, loss = step(params, state, batch)
-        losses.append(float(loss))
-    return {jax.tree_util.keystr(p): np.asarray(x)
-            for p, x in jax.tree_util.tree_leaves_with_path(params)}, losses
+    steps, batches = {}, {}
+    for case, kw in JAX_CASES[shape].items():
+        kw = dict(kw)
+        data_axis = kw.pop("data_axis", "data")
+        steps[case] = jdp.make_train_step(
+            lambda p, b: jtfm.loss_fn(p, b, JCFG), tx, mesh,
+            data_axis=data_axis, donate=False, **kw)
+        batches[case] = jdp.shard_batch({"tokens": TOKENS}, mesh, data_axis)
+    params = jdp.replicate(_jax_params(), mesh)
+    state = jdp.replicate(tx.init(_jax_params()), mesh)
+    out = jax.jit(lambda params, state, batches: {
+        case: steps[case](params, state, batches[case]) for case in steps})(
+        params, state, batches)
+    return {case: ({jax.tree_util.keystr(p): np.asarray(x) for p, x in
+                    jax.tree_util.tree_leaves_with_path(new)}, [float(loss)])
+            for case, (new, _, loss) in out.items()}
+
+
+def _jax_train(case, shape=(("data", 2),)):
+    return _jax_refs(shape)[case]
 
 
 def _assert_close(got, want, atol):
@@ -109,7 +153,8 @@ def test_two_ranks_equal_one_process_and_jax(jax_params, accum_steps,
     _assert_close(ranks[1], ranks[0], atol=0)         # replicas stay equal
     single = _port_train(jax_params, None, **kw)
     _assert_close(ranks[0], single, atol=1e-6)
-    _assert_close(ranks[0], _jax_train(jax_params, **kw), atol=1e-5)
+    _assert_close(ranks[0], _jax_train(
+        f"accum {accum_steps}, buckets {bucket_bytes}"), atol=1e-5)
 
 
 def test_bf16_wire_cast_equals_jax(jax_params):
@@ -120,9 +165,7 @@ def test_bf16_wire_cast_equals_jax(jax_params):
     kw = dict(bucket_bytes=16 << 10)
     ranks = run_ranks(2, lambda g, r: _port_train(
         jax_params, g, compression=compression.Compression.bf16, **kw))
-    _assert_close(ranks[0], _jax_train(
-        jax_params, compression=jax_compression.Compression.bf16, **kw),
-        atol=1e-5)
+    _assert_close(ranks[0], _jax_train("bf16"), atol=1e-5)
 
 
 def test_bucket_plan_matches_the_reference_rule(jax_params):
@@ -255,7 +298,7 @@ def test_adasum_equals_jax(jax_params, n):
         _assert_close(r, ranks[0], atol=0)
     with pytest.raises(AssertionError):
         _assert_close(ranks[0], _port_train(jax_params, None), atol=1e-5)
-    _assert_close(ranks[0], _jax_train(jax_params, shape=shape, **kw),
+    _assert_close(ranks[0], _jax_train("adasum", (("data", n),)),
                   atol=1e-5)
 
 
@@ -269,8 +312,8 @@ def test_tuple_data_axis_equals_jax(jax_params):
         jax_params, create_mesh(shape, w), data_axis=axes))
     _assert_close(ranks[3], ranks[0], atol=0)
     _assert_close(ranks[0], _port_train(jax_params, None), atol=1e-6)
-    _assert_close(ranks[0], _jax_train(jax_params, shape=shape,
-                                       data_axis=axes), atol=1e-5)
+    _assert_close(ranks[0], _jax_train("tuple", tuple(shape.items())),
+                  atol=1e-5)
 
 
 def test_extra_reduce_equals_jax(jax_params):
@@ -281,13 +324,8 @@ def test_extra_reduce_equals_jax(jax_params):
         return dict(g, embed=-g["embed"], final_ln={
             k: 0.0 * v for k, v in g["final_ln"].items()})
 
-    def jax_hook(g):
-        return dict(g, embed=-g["embed"], final_ln=jax.tree.map(
-            lambda v: 0.0 * v, g["final_ln"]))
-
     ranks = run_ranks(2, lambda g, r: _port_train(
         jax_params, g, extra_reduce=port_hook))
     with pytest.raises(AssertionError):     # the hook moved the params
         _assert_close(ranks[0], _port_train(jax_params, None), atol=1e-5)
-    _assert_close(ranks[0], _jax_train(jax_params, extra_reduce=jax_hook),
-                  atol=1e-5)
+    _assert_close(ranks[0], _jax_train("extra_reduce"), atol=1e-5)

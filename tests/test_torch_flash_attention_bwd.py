@@ -16,6 +16,8 @@ differently they differ by one bf16 step, at most 2**-7 of the value:
 1e-5 + 1e-2 |dx|.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,15 +51,34 @@ def _port_grads(q, k, v, do, dlse, mode, dtype, block):
                                 torch.tensor(dlse)))
 
 
+_MODES = ("none", "diag", "strict")
+_SHAPE = (2, 128, 2, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_grads():
+    """{(mode, dtype): (dq, dk, dv)} of ``jax.vjp`` of the Pallas kernels
+    on ``_inputs(11, _SHAPE)``, every mode and dtype in one jitted
+    program (one compile, where one a case would be six)."""
+    def every(q, k, v, do, dlse):
+        out = {}
+        for m in _MODES:
+            for d, (jdt, *_) in _DT.items():
+                _, vjp = jax.vjp(lambda q, k, v, m=m: jax_flash_lse(
+                    q, k, v, mode=m, block=64, interpret=True),
+                    *(x.astype(jdt) for x in (q, k, v)))
+                out[m, d] = vjp((do.astype(jdt), dlse))
+        return out
+
+    return jax.jit(every)(*_inputs(11, _SHAPE))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["none", "diag", "strict"])
+@pytest.mark.parametrize("mode", _MODES)
 def test_grads_match_pallas(mode, dtype):
     jdt, tdt, atol, rtol = _DT[dtype]
-    q, k, v, do, dlse = _inputs(11, (2, 128, 2, 32))
-    _, vjp = jax.vjp(lambda q, k, v: jax_flash_lse(
-        q, k, v, mode=mode, block=64, interpret=True),
-        *(jnp.asarray(x, jdt) for x in (q, k, v)))
-    want = vjp((jnp.asarray(do, jdt), jnp.asarray(dlse)))
+    q, k, v, do, dlse = _inputs(11, _SHAPE)
+    want = _pallas_grads()[mode, dtype]
     got = _port_grads(q, k, v, do, dlse, mode, tdt, 64)
     for g, w in zip(got, want):
         assert g.dtype == tdt and tuple(g.shape) == (2, 128, 2, 32)

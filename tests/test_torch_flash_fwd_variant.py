@@ -3,8 +3,9 @@
 the CPU: the rule is a pure function of dtype, shape, strides and
 pointers, so it needs no card.
 
-- bf16 with D % 8 == 0 and every [B, S, H] row start 16-byte aligned
-  takes "tma" (TMA + wgmma), any other bf16 "mma", float32 "fma";
+- bf16 with D % 8 == 0, every [B, S, H] row start 16-byte aligned and
+  positive B, S and H strides takes "tma" (TMA + wgmma), any other bf16
+  (K/V expanded over B or H among them) "mma", float32 "fma";
 - a named variant that cannot take the arguments raises before anything
   is built or launched;
 - CPU tensors still go to the plain version, and no count moves.
@@ -75,6 +76,30 @@ def test_one_misaligned_tensor_leaves_tma():
     _, _, v = _qkv(torch.bfloat16, 64, "offset")
     assert fa._fwd_variant(q, k, v) == "mma"
     assert fa._fwd_variant(q, k, k) == "tma"
+
+
+@pytest.mark.parametrize("over,strides", [
+    ("B", (0, 192, 64, 1)), ("H", (1536, 64, 0, 1))])
+def test_expanded_kv_leaves_tma(over, strides):
+    """K/V expanded over B or H (a stride of 0, which no TMA map takes)
+    send the call to the mma.sync kernel, as the backward's rule does,
+    and a forced "tma" raises before any launch."""
+    q, k, v = _qkv(torch.bfloat16, 64, "contiguous")
+    if over == "B":
+        k, v = (t[:1].expand(2, 24, 3, 64) for t in (k, v))
+    else:
+        k, v = (t[:, :, :1].contiguous().expand(2, 24, 3, 64)
+                for t in (k, v))
+    assert k.stride() == v.stride() == strides
+    assert fa._fwd_variant(q, k, v) == "mma"
+    assert {var for var in fa._FWD_VARIANTS
+            if fa._fwd_takes(var, q, k, v)} == {"mma"}
+    assert not fa._bwd_takes("tma", q, k, v, q)
+    assert fa._fwd_variant(q, q, q) == "tma"
+    before = _counts()
+    with pytest.raises(ValueError, match="variant 'tma' does not take"):
+        fa.flash_fwd_cuda(q, k, v, "diag", 64 ** -0.5, variant="tma")
+    assert _counts() == before
 
 
 @pytest.mark.parametrize("variant,dtype,D,layout", [

@@ -18,6 +18,7 @@ Ranks are threads, each with its own gloo ``World`` over one shared
 """
 
 import dataclasses
+import functools
 import socket
 
 import jax
@@ -46,10 +47,15 @@ TCFG = dataclasses.replace(ttfm.tiny(), dtype="float32", attn_impl="gather")
 TOKENS = np.random.default_rng(31).integers(0, 256, (4, 17), dtype=np.int32)
 
 
-@pytest.fixture(scope="module")
-def jax_params():
+@functools.lru_cache(maxsize=None)
+def _jax_params():
     return jax.jit(jtfm.init_params, static_argnums=1)(
         jax.random.PRNGKey(5), jtfm.tiny())
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return _jax_params()
 
 
 def _params(jax_params):
@@ -98,17 +104,38 @@ def _hvd_train(jax_params, world, micro=1, **kw):
     return snaps, hvd.metric_average(np.mean(losses), process_set=ps)
 
 
-def _jax_train(jax_params, **kw):
+# The reference steps of this file (the JAX package's make_train_step
+# with these arguments, one step on a 2-device mesh), all in one jitted
+# program: one compile, where one a case would be three.
+JAX_CASES = {
+    "accum 1": dict(accum_steps=1),
+    "accum 2": dict(accum_steps=2),
+    "bf16": dict(bucket_bytes=1 << 30,
+                 compression=jax_compression.Compression.bf16),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_refs():
+    """{case: (params after the step by path, loss)}."""
     mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
     tx = optax.adamw(1e-4)
-    step = jdp.make_train_step(lambda p, b: jtfm.loss_fn(p, b, JCFG), tx,
-                               mesh, donate=False, **kw)
-    params, _, loss = step(jdp.replicate(jax_params, mesh),
-                           jdp.replicate(tx.init(jax_params), mesh),
-                           jdp.shard_batch({"tokens": TOKENS}, mesh))
-    return {jax.tree_util.keystr(p): np.asarray(x)
-            for p, x in jax.tree_util.tree_leaves_with_path(params)}, \
-        float(loss)
+    steps = {case: jdp.make_train_step(
+        lambda p, b: jtfm.loss_fn(p, b, JCFG), tx, mesh, donate=False, **kw)
+        for case, kw in JAX_CASES.items()}
+    out = jax.jit(lambda params, state, batch: {
+        case: step(params, state, batch) for case, step in steps.items()})(
+        jdp.replicate(_jax_params(), mesh),
+        jdp.replicate(tx.init(_jax_params()), mesh),
+        jdp.shard_batch({"tokens": TOKENS}, mesh))
+    return {case: ({jax.tree_util.keystr(p): np.asarray(x) for p, x in
+                    jax.tree_util.tree_leaves_with_path(params)},
+                   float(loss))
+            for case, (params, _, loss) in out.items()}
+
+
+def _jax_train(case):
+    return _jax_refs()[case]
 
 
 def _assert_close(got, want, atol=1e-5):
@@ -121,7 +148,7 @@ def _assert_close(got, want, atol=1e-5):
 @pytest.mark.parametrize("micro", [1, 2])
 def test_distributed_optimizer_equals_jax(jax_params, micro):
     ranks = run_worlds(2, lambda w: _hvd_train(jax_params, w, micro=micro))
-    want, want_loss = _jax_train(jax_params, accum_steps=micro)
+    want, want_loss = _jax_train(f"accum {micro}")
     start = _snapshot(_params(jax_params))
     for snaps, loss in ranks:
         if micro == 2:      # the first call leaves the params as they were
@@ -138,8 +165,7 @@ def test_distributed_optimizer_bf16_wire_equals_jax(jax_params):
     ranks = run_worlds(2, lambda w: _hvd_train(
         jax_params, w, compression=hvd.Compression.bf16))
     assert compression.stats()["engaged"] - before == 2   # one per rank
-    want, _ = _jax_train(jax_params, bucket_bytes=1 << 30,
-                         compression=jax_compression.Compression.bf16)
+    want, _ = _jax_train("bf16")
     for snaps, _ in ranks:
         _assert_close(snaps[-1], want)
 

@@ -30,6 +30,8 @@ Tolerances (|port − flax| ≤ atol + rtol·|flax|, elementwise):
   within 3e-2 + 3e-2·|flax| (measured 0.019).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -52,15 +54,28 @@ def _variables(stem):
     return _VARIABLES[stem]
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_refs(stem):
+    """{(norm, dtype): (logits, {"batch_stats": ...})} of the reference in
+    training mode on ``images(13)``, for both of its norms and dtypes,
+    in one strictly compiled program (one compile a stem, where one a
+    case would be six)."""
+    def every(v, x):
+        return {(norm, dtype): flax_model(stem, norm, dtype).apply(
+            v, x, train=True, mutable=["batch_stats"])
+            for norm in ("flax", "pallas")
+            for dtype in ("float32", "bfloat16")}
+
+    return strict_jit(every, _variables(stem), images(13))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("norm", ["flax", "pallas", "bf16stats"])
 @pytest.mark.parametrize("stem", ["classic", "s2d"])
 def test_train_forward_matches_flax(stem, norm, dtype):
     v, x = _variables(stem), images(13)
     ref_norm = "flax" if norm == "bf16stats" else norm
-    logits, upd = strict_jit(
-        lambda v, x: flax_model(stem, ref_norm, dtype).apply(
-            v, x, train=True, mutable=["batch_stats"]), v, x)
+    logits, upd = _flax_refs(stem)[ref_norm, dtype]
     model = port_with(v, stem, norm, dtype)
     with torch.no_grad():
         got = model(torch.tensor(x), train=True)

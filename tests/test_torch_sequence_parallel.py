@@ -19,6 +19,8 @@ and relative (float32 sums over 32 keys, split into p partials merged
 by their max or log-sum-exp); against JAX, the same.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,19 +91,63 @@ def _dense(causal):
     return [t.detach().numpy() for t in (out,) + grads]
 
 
-def _jax(p, fn):
-    """(out, dq, dk, dv) of a JAX sharded attention ``fn(mesh)``."""
+# The JAX rings each case is held to (each compiles the whole ring
+# with its backward; the flash ones run Pallas in interpret mode). The
+# four flash masks are covered: contiguous causal gives none, diag and
+# the skip, striped causal diag and strict.
+JAX_RING_CASES = [
+    (2, "einsum", "contiguous", True),
+    (4, "einsum", "striped", True),
+    (4, "einsum", "contiguous", False),
+    (4, "flash", "contiguous", True),
+    (2, "flash", "striped", True),
+]
+
+
+def _jax_fns(p):
+    """{case: fn(mesh)} of the references on a ``{"data": 2, "seq": p}``
+    mesh: the rings of ``JAX_RING_CASES`` and Ulysses, causal or not."""
+    fns = {(p_, inner, layout, causal): (
+        lambda mesh, inner=inner, layout=layout, causal=causal: jax_ring(
+            mesh, axis="seq", causal=causal, batch_axis="data",
+            layout=layout, inner=inner, inner_block=8, jit=False))
+        for p_, inner, layout, causal in JAX_RING_CASES if p_ == p}
+    if p == 4:
+        for causal in (True, False):
+            fns["ulysses", causal] = (
+                lambda mesh, causal=causal: jax_ulysses(
+                    mesh, axis="seq", causal=causal, batch_axis="data"))
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_refs(p):
+    """{case: (out, dq, dk, dv)} of every reference of ``_jax_fns(p)``,
+    each the gradients of ``sum(out * W)``, in one jitted program (one
+    compile a mesh, where one a case would be five)."""
     mesh = Mesh(np.asarray(jax.devices()[:2 * p]).reshape(2, p),
                 ("data", "seq"))
-    f = fn(mesh)
+    fns = {case: make(mesh) for case, make in _jax_fns(p).items()}
 
-    def loss(q, k, v):
-        out = f(q, k, v)
-        return jnp.sum(out * W), out
+    def every(q, k, v):
+        out = {}
+        for case, f in fns.items():
+            def loss(q, k, v, f=f):
+                o = f(q, k, v)
+                return jnp.sum(o * W), o
 
-    (_, out), grads = jax.jit(jax.value_and_grad(
-        loss, argnums=(0, 1, 2), has_aux=True))(Q, K, V)
-    return [np.asarray(t) for t in (out,) + grads]
+            (_, o), grads = jax.value_and_grad(
+                loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+            out[str(case)] = (o,) + grads
+        return out
+
+    return {case: [np.asarray(t) for t in res]
+            for case, res in jax.jit(every)(Q, K, V).items()}
+
+
+def _jax(p, case):
+    """(out, dq, dk, dv) of the reference ``case`` of ``_jax_fns(p)``."""
+    return _jax_refs(p)[str(case)]
 
 
 def _close(got, want, what):
@@ -124,24 +170,9 @@ def test_ring_matches_whole_sequence_attention(p, inner, layout, causal):
            f"ring p={p} {inner} {layout} causal={causal}")
 
 
-# The JAX rings each case is held to (each compiles the whole ring
-# with its backward; the flash ones run Pallas in interpret mode). The
-# four flash masks are covered: contiguous causal gives none, diag and
-# the skip, striped causal diag and strict.
-JAX_RING_CASES = [
-    (2, "einsum", "contiguous", True),
-    (4, "einsum", "striped", True),
-    (4, "einsum", "contiguous", False),
-    (4, "flash", "contiguous", True),
-    (2, "flash", "striped", True),
-]
-
-
 @pytest.mark.parametrize("p,inner,layout,causal", JAX_RING_CASES)
 def test_ring_matches_jax_make_ring_attention(p, inner, layout, causal):
-    want = _jax(p, lambda mesh: jax_ring(
-        mesh, axis="seq", causal=causal, batch_axis="data", layout=layout,
-        inner=inner, inner_block=8, jit=False))
+    want = _jax(p, (p, inner, layout, causal))
     _close(_port_ring(p, inner, layout, causal), want,
            f"ring p={p} {inner} {layout} causal={causal} against JAX")
 
@@ -150,8 +181,7 @@ def test_ring_matches_jax_make_ring_attention(p, inner, layout, causal):
 def test_ulysses_matches_jax_and_whole_sequence(causal):
     got = _port(4, lambda mesh: make_ulysses_attention(
         mesh, "seq", causal=causal, batch_axis="data"))
-    want = _jax(4, lambda mesh: jax_ulysses(
-        mesh, axis="seq", causal=causal, batch_axis="data"))
+    want = _jax(4, ("ulysses", causal))
     _close(got, want, f"ulysses causal={causal} against JAX")
     _close(got, _dense(causal), f"ulysses causal={causal}")
 

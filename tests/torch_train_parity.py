@@ -40,9 +40,13 @@ TOKENS_SHAPE = (2, 49)
 
 class JaxRefs:
     """One JAX init and token batch per expert count, and the reference
-    (loss, {leaf path: grad}) per (dtype, attn_impl), computed on first
-    use. The reference runs with remat off and loss_chunk 0: neither
-    changes the function, and every port variant is held to it."""
+    (loss, {leaf path: grad}) per (dtype, attn_impl), every one computed
+    on first use in one jitted program (one compile, where one a case
+    would be four). The reference runs with remat off and loss_chunk 0:
+    neither changes the function, and every port variant is held to
+    it."""
+
+    DTYPES, IMPLS = ("float32", "bfloat16"), ("gather", "flash")
 
     def __init__(self, n_experts):
         self.n_experts = n_experts
@@ -53,15 +57,18 @@ class JaxRefs:
         self._refs = {}
 
     def get(self, dtype, impl):
-        if (dtype, impl) not in self._refs:
-            cfg = dataclasses.replace(jtfm.tiny(self.n_experts), dtype=dtype,
-                                      attn_impl=impl)
-            loss, grads = jax.jit(jax.value_and_grad(jtfm.loss_fn),
-                                  static_argnums=2)(
-                self.params, {"tokens": self.tokens}, cfg)
-            self._refs[dtype, impl] = (float(loss), {
+        if not self._refs:
+            cfgs = {(d, i): dataclasses.replace(
+                jtfm.tiny(self.n_experts), dtype=d, attn_impl=i)
+                for d in self.DTYPES for i in self.IMPLS}
+            out = jax.jit(lambda params, batch: {
+                key: jax.value_and_grad(jtfm.loss_fn)(params, batch, cfg)
+                for key, cfg in cfgs.items()})(
+                self.params, {"tokens": self.tokens})
+            self._refs = {key: (float(loss), {
                 jax.tree_util.keystr(p): np.asarray(g, np.float32)
                 for p, g in jax.tree_util.tree_leaves_with_path(grads)})
+                for key, (loss, grads) in out.items()}
         return self._refs[dtype, impl]
 
     def port(self, dtype, impl, remat, loss_chunk):
