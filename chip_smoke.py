@@ -28,14 +28,20 @@ Phases (each prints its lines; any failure exits non-zero):
    "gather" (B=8, S=512, bf16 and f32), the kernel's launch count per
    forward, and the long-context eval loss (S=4096, loss_chunk=2048)
    through flash against gather;
-3. serve: ``ServeLoop`` at bert-large width over the paged KV cache; in
-   float32 every served token's logits are held to
-   ``forward(attn_impl="flash")`` over the prompt plus the tokens served
-   so far; in bf16 it reports tok/s and TTFT p50;
-4. train: ``make_train_step`` over ``hvd.init()``'s NCCL world of size
-   1 with AdamW, bert-large B=8 S=512 bf16 flash: step 0's loss and
-   gradients through flash against gather (f32 and bf16), launches per
-   step (also with remat), a falling loss, tokens/s and a profile; then
+3. serve: ``ServeLoop`` at bert-large width over the paged KV cache,
+   mesh-free and tensor-parallel through ``create_mesh({"model": 1})``
+   over ``hvd.init()``'s NCCL world of size 1 (the params through
+   ``shard_params``, the cache's heads over the mesh's model group,
+   whose collectives move nothing on one rank, ``sharding.solo``, so no
+   NCCL call is made); in float32 every served token's logits are
+   held to ``forward(attn_impl="flash")`` over the prompt plus the
+   tokens served so far, in each run, and the mesh's rows to the
+   mesh-free rows; in bf16 it reports tok/s, TTFT p50 and ITL p50 of
+   both side by side, and a profile of each;
+4. train: ``make_train_step`` over the same NCCL world with AdamW,
+   bert-large B=8 S=512 bf16 flash: step 0's loss and gradients
+   through flash against gather (f32 and bf16), launches per step
+   (also with remat), a falling loss, tokens/s and a profile; then
    the long-context train step, whose step-0 loss must equal phase 2's
    eval loss;
 5. hvd: the Horovod API (horovod_tpu_torch/hvd.py) on the card. (a)
@@ -47,7 +53,9 @@ Phases (each prints its lines; any failure exits non-zero):
    ``hvd.DistributedOptimizer(AdamW)`` from phase 4's parameters: step
    0's loss, every gradient leaf and every leaf's update against
    ``make_train_step``'s step 0 on the same batch, a falling loss over 4
-   steps, tokens/s of both; (c) ``make_train_step`` over
+   steps, tokens/s of both, and one more step in a trace window of
+   horovod_tpu_torch/profiler.py, whose ``hvd.<op>`` ranges (count and
+   host time) must be there; (c) ``make_train_step`` over
    ``create_mesh({"data": 1})`` with ``data_axis=("data",)`` and
    ``grad_reduce="adasum"``, step 0 against the same reference;
 6. mesh: (a) bert-large B=8 S=512 bf16 through ``loss_fn(mesh=...)``
@@ -90,6 +98,9 @@ Phases (each prints its lines; any failure exits non-zero):
    profile; the eval ``entry()``'s logits;
 9. one JSON line of kernels, then the result line.
 
+Every profile line opens its window through horovod_tpu_torch/profiler.py
+(``start``/``stop``; the trace goes to a temporary directory).
+
 The kernel phase 1 also holds B4 (csrc/paired_reduce.cu) against its
 plain version at every (R, C) a ResNet-50 step gives it, at ragged
 shapes and on an unaligned pointer, bf16 and f32, as (x, x) and (dy, x),
@@ -115,6 +126,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -244,8 +256,9 @@ TOL_TRAIN_BF16_LOSS, TOL_TRAIN_BF16_GRAD = 2e-2, 0.1
 TOL_HVD = dict(loss=1e-5, grad=1e-4, update=1e-2)
 # The mesh phase's bert-large step 0 through loss_fn(mesh=...) over a mesh
 # of one rank against the mesh-free step. flash against flash: every
-# group has one rank, so each collective is the identity (a copy) and
-# both steps run the same kernels on the same inputs; the hvd phase's
+# group has one rank, so each collective of parallel/sharding.py returns
+# its input (``sharding.solo``) and both steps run the same kernels on
+# the same inputs; the hvd phase's
 # gates (TOL_HVD), and the line counts the bit-equal leaves. ring against
 # gather: the ring's einsum step keeps the logits, the probabilities and
 # P.V in float32 where gather rounds each to bf16, the same kind of
@@ -421,22 +434,34 @@ def graph_ms(torch, fn, reps, stream=None):
     return start.elapsed_time(end) / (3 * reps)
 
 
-def profile_line(torch, label, fn):
-    """Device busy share over one call of ``fn`` and the kernels that took
-    most device time, from torch.profiler (CUPTI); then the host side:
-    self CPU time of the ops launched and the ops that took most. Wall
-    time includes the profiler's own cost, so the busy share is a lower
-    bound and the host times are upper bounds. Returns (the kernels'
-    events, wall ms)."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled(torch, fn):
+    """(the profile of one call of ``fn``, wall ms): a trace window of
+    horovod_tpu_torch/profiler.py (torch.profiler over the CPU and CUDA,
+    CUPTI on the card), its trace written into a temporary directory
+    that is removed after."""
+    from horovod_tpu_torch import profiler
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as logdir:
+        profiler.start(logdir)
+        try:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            prof = profiler.stop()
+    return prof, wall_ms
+
+
+def profile_line(torch, label, fn):
+    """Device busy share over one call of ``fn`` and the kernels that took
+    most device time, from its profile (:func:`profiled`); then the host
+    side: self CPU time of the ops launched and the ops that took most.
+    Wall time includes the profiler's own cost, so the busy share is a
+    lower bound and the host times are upper bounds. Returns (the
+    kernels' events, wall ms)."""
+    prof, wall_ms = profiled(torch, fn)
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.key_averages()
     kern = sorted((e for e in events                  # kernels only, not
@@ -880,22 +905,24 @@ def _record(sl, log):
         sl.bprefill_fn = rec_bprefill
 
 
-def phase_serve(torch, tfm, loop, kv_cache, params, cfg):
-    geo = kv_cache.geometry(n_pages=256, page_size=16, max_context=512)
-    flash32 = dataclasses.replace(cfg, dtype="float32", attn_impl="flash")
-
-    # float32: served logits against forward(flash).
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    sl = loop.ServeLoop(params, cfg32, geo=geo, max_batch=8, device="cuda")
+def _serve_f32(torch, tfm, loop, params, cfg32, geo, label, **kw):
+    """Serve 8 requests in float32 and hold every served row's logits to
+    ``forward(attn_impl="flash")`` over the prompt plus the tokens served
+    so far, near-ties counted; returns ({rid: tokens served}, {(rid,
+    context length): logits}).
+    ``params`` may be a one-rank mesh's shard: that is the whole tree, so
+    the mesh-free ``forward`` takes it as it is."""
+    flash32 = dataclasses.replace(cfg32, attn_impl="flash")
+    sl = loop.ServeLoop(params, cfg32, geo=geo, max_batch=8, **kw)
     log = []
     _record(sl, log)
     sl.warmup()
     reqs = loop.poisson_requests(8, 40.0, np.random.default_rng(2),
                                  prompt_len=(16, 128), max_new=(16, 32),
-                                 vocab=cfg.vocab_size)
+                                 vocab=cfg32.vocab_size)
     summary, finished = sl.run(reqs)
     check(len(finished) == 8 and all(r.finish_reason for r in finished),
-          f"serve f32: {len(finished)} of 8 requests finished")
+          f"serve f32 {label}: {len(finished)} of 8 requests finished")
     check(sl.chunk_fn is None or summary["chunk_fills"] == 0,
           "chunked prefill ran; its logits are not recorded")
     worst, ties, checked = 0.0, [], 0
@@ -910,22 +937,26 @@ def phase_serve(torch, tfm, loop, kv_cache, params, cfg):
                 top2 = row.topk(2).values
                 gap = (top2[0] - top2[1]).item()
                 check(gap <= 2 * TOL_SERVE_F32,
-                      f"serve f32 rid {rid} token {i}: served {tok}, "
+                      f"serve f32 {label} rid {rid} token {i}: served {tok}, "
                       f"forward argmax {int(row.argmax())}, gap {gap:.3g}")
                 ties.append((rid, i, gap))
         for lrid, ctx_len, logits in (e for e in log if e[0] == rid):
             worst = max(worst, (logits - ref[ctx_len - 1]).abs().max().item())
             checked += 1
     n_tokens = sum(len(r.generated) for r in finished)
-    line = (f"serve bert-large f32: {len(finished)} requests, {n_tokens} "
-            f"tokens, {checked} served logit rows, max|served-forward(flash)|"
-            f" {worst:.3g} (tol {TOL_SERVE_F32}), near-ties {ties}")
+    line = (f"serve bert-large f32 {label}: {len(finished)} requests, "
+            f"{n_tokens} tokens, {checked} served logit rows, "
+            f"max|served-forward(flash)| {worst:.3g} (tol {TOL_SERVE_F32}), "
+            f"near-ties {ties}")
     check(checked == n_tokens and worst <= TOL_SERVE_F32, line)
     print(line)
-    del sl
+    return ({r.rid: list(r.generated) for r in finished},
+            {(rid, ctx_len): logits for rid, ctx_len, logits in log})
 
-    # bf16: throughput and latency.
-    sl = loop.ServeLoop(params, cfg, geo=geo, max_batch=8, device="cuda")
+
+def _serve_bf16(torch, loop, params, cfg, geo, **kw):
+    """(summary of 8 bf16 requests after a warmup, the loop)."""
+    sl = loop.ServeLoop(params, cfg, geo=geo, max_batch=8, **kw)
     sl.warmup()
     torch.cuda.synchronize()
     reqs = loop.poisson_requests(8, 40.0, np.random.default_rng(3),
@@ -933,16 +964,55 @@ def phase_serve(torch, tfm, loop, kv_cache, params, cfg):
                                  vocab=cfg.vocab_size)
     summary, finished = sl.run(reqs)
     check(len(finished) == 8 and all(r.finish_reason for r in finished),
-          f"serve bf16: {len(finished)} of 8 requests finished")
-    print(f"serve bert-large bf16: {summary['requests']} requests, "
-          f"{summary['tokens']} tokens, {summary['tok_s']} tok/s, TTFT p50 "
-          f"{summary['ttft_p50_ms']} ms, ITL p50 {summary['itl_p50_ms']} ms, "
-          f"batch fill {summary['batch_fill_mean']}")
-    reqs = loop.poisson_requests(8, 40.0, np.random.default_rng(4),
-                                 prompt_len=(16, 128), max_new=(16, 32),
-                                 vocab=cfg.vocab_size)
-    profile_line(torch, "serve bert-large bf16 (8 more requests)",
-                 lambda: sl.run(reqs))
+          f"serve bf16 {kw}: {len(finished)} of 8 requests finished")
+    return summary, sl
+
+
+def phase_serve(torch, tfm, loop, kv_cache, convert, hvd, params, cfg,
+                card):
+    """ServeLoop at bert-large width, mesh-free and tensor-parallel over
+    a one-rank ``{"model": 1}`` NCCL mesh (params through
+    ``shard_params``): float32 rows against forward(flash), then bf16
+    tok/s and latencies of both, side by side, and a profile of each."""
+    geo = kv_cache.geometry(n_pages=256, page_size=16, max_context=512)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    mesh = hvd.global_mesh({"model": 1})
+    sharded = convert.shard_params(params, cfg, mesh)
+
+    free = _serve_f32(torch, tfm, loop, params, cfg32, geo, "mesh-free",
+                      device="cuda")
+    meshed = _serve_f32(torch, tfm, loop, sharded, cfg32, geo,
+                        f"through {mesh}", mesh=mesh)
+    # Each run is held to forward above; where a request's chain is the
+    # same in both (a near-tie may flip one), its rows are compared.
+    same = [rid for rid, toks in free[0].items() if meshed[0][rid] == toks]
+    both = [k for k in free[1] if k[0] in same]
+    diff = max((meshed[1][k] - free[1][k]).abs().max().item() for k in both)
+    line = (f"serve bert-large f32 {mesh} against mesh-free: {len(same)} "
+            f"of {len(free[0])} requests served the same tokens, their "
+            f"{len(both)} rows max|mesh - mesh-free| {diff:.3g} (tol "
+            f"{TOL_SERVE_F32})")
+    check(both and all(k in meshed[1] for k in both)
+          and diff <= TOL_SERVE_F32, line)
+    print(line)
+
+    # bf16: throughput and latency, mesh-free beside the mesh.
+    runs = {"mesh-free": _serve_bf16(torch, loop, params, cfg, geo,
+                                     device="cuda"),
+            str(mesh): _serve_bf16(torch, loop, sharded, cfg, geo,
+                                   mesh=mesh)}
+    for name, (summary, _) in runs.items():
+        print(f"serve bert-large bf16 {name} ({card}): "
+              f"{summary['requests']} requests, {summary['tokens']} tokens, "
+              f"{summary['tok_s']} tok/s, TTFT p50 "
+              f"{summary['ttft_p50_ms']} ms, ITL p50 {summary['itl_p50_ms']} "
+              f"ms, batch fill {summary['batch_fill_mean']}")
+    for name, (_, sl) in runs.items():
+        reqs = loop.poisson_requests(8, 40.0, np.random.default_rng(4),
+                                     prompt_len=(16, 128), max_new=(16, 32),
+                                     vocab=cfg.vocab_size)
+        profile_line(torch, f"serve bert-large bf16 {name} (8 more "
+                     f"requests)", lambda: sl.run(reqs))
 
 
 def _launches(fa):
@@ -1231,6 +1301,18 @@ def phase_hvd(torch, tfm, dp, hvd, ops, params, cfg, card):
                        "B=8 S=512 bf16 flash", ref, before, loss0,
                        hopt.optimizer.grads, dp.tree_leaves(hp), names)
         more, sec = _timed_steps(torch, hstep, hp, batch, 3)
+        # One more step in a trace window: the Horovod API's profiler
+        # ranges (hvd.<op>, horovod_tpu_torch/profiler.py) must be in it.
+        prof, wall_ms = profiled(torch, lambda: hstep(hp, batch))
+    # A range is a host event, and a CUDA one beside it (no host time).
+    ranges = [e for e in prof.key_averages() if e.key.startswith("hvd.")
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    line = (f"profile hvd DistributedOptimizer step ({card}): wall "
+            f"{wall_ms:.1f} ms; hvd ranges: " + "; ".join(
+                f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.3f} ms host"
+                for e in ranges))
+    check(ranges, line)
+    print(line)
     losses = [loss0] + more
     line = (f"hvd bert-large DistributedOptimizer over {group.name()} world "
             f"size {hvd.size()}: losses {[round(x, 5) for x in losses]}")
@@ -2065,13 +2147,14 @@ def main():
 
     def serving():
         longctx = phase_forward(torch, tfm, fa, params, cfg)
-        phase_serve(torch, tfm, loop, kv_cache, params, cfg)
+        phase_serve(torch, tfm, loop, kv_cache, convert, hvd, params, cfg,
+                    card)
         return longctx
 
-    served, longctx = run_path("serving", serving, ["flash_fwd"])
     hvd.init()                            # NCCL, world size 1
     try:
         group = hvd.global_process_set.group
+        served, longctx = run_path("serving", serving, ["flash_fwd"])
         trained, _ = run_path("training", lambda: phase_train(
             torch, tfm, fa, dp, params, cfg, group, longctx),
             ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])

@@ -17,7 +17,10 @@ Usage, one process per card (launched by ``tpurun``, which exports
 
 ``hvd.init(device="cpu")`` runs the same over gloo on the CPU. The ops
 take ``process_set=`` (default: every rank); for the compiled-step
-analog see :func:`horovod_tpu_torch.parallel.make_train_step`.
+analog see :func:`horovod_tpu_torch.parallel.make_train_step`. Under
+``HVD_PROFILER=1`` or :func:`horovod_tpu_torch.profiler.start` every op,
+and each ``DistributedOptimizer`` reduction, is a profiler range named
+``hvd.<op>``.
 """
 
 import torch
@@ -40,6 +43,7 @@ from .distributed import (  # noqa: F401
     shutdown,
     size,
 )
+from . import profiler as _profiler
 from .exceptions import HorovodInternalError, HostsUpdatedInterrupt  # noqa: F401
 from .ops import torch_ops as _ops
 from .ops.torch_ops import (  # noqa: F401
@@ -117,6 +121,7 @@ class _DistributedOptimizer:
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
         _refuse_cut(self._params, "DistributedOptimizer")
+        self._cuda = bool(self._params) and self._params[0].is_cuda
         # Decided and counted once, as make_train_step does.
         self._wire = _ops._wire_route(compression)
         self._acc, self._count = None, 0
@@ -144,9 +149,10 @@ class _DistributedOptimizer:
                 return None
             grads = [a.div_(n) for a in self._acc]
             self._acc, self._count = None, 0
-        reduced = _ops._reduce_leaves(grads, self.op,
-                                      _ops._group(self.process_set),
-                                      self.compression, self._wire)
+        with _profiler.op_range("hvd.grouped_allreduce", self._cuda):
+            reduced = _ops._reduce_leaves(grads, self.op,
+                                          _ops._group(self.process_set),
+                                          self.compression, self._wire)
         for p, g in zip(self._params, reduced):
             p.grad = g
         return self.optimizer.step()

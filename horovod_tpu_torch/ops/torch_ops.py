@@ -17,18 +17,21 @@ result on the input's device.
 What the C++ core adds beyond the data plane (``join``, async handles
 with ``poll``/``synchronize``, the response cache, timeline, autotune
 and the stall inspector) is not part of the port (ROADMAP Queue A item
-16).
+16). The Horovod ops run inside profiler ranges named ``hvd.<op>``
+(:mod:`..profiler`; the end of this module).
 
 A collective that fails in flight raises
 :class:`~..exceptions.HorovodInternalError`.
 """
 
+import functools
 import pickle
 
 import torch
 import torch.distributed as dist
 
 from .. import compression as _compression
+from .. import profiler as _profiler
 from ..exceptions import HorovodInternalError
 from ..process_sets import global_process_set
 from ..tree import tree_leaves, tree_map, tree_unflatten
@@ -492,3 +495,54 @@ def metric_average(value, name=None, process_set=global_process_set):
     x = torch.tensor([float(value)], dtype=torch.float64,
                      device=process_set.world.device)
     return float(allreduce_(x, group, Average)[0])
+
+
+# ---------------------------------------------------------------------------
+# Profiler ranges around the user-facing ops (collective_ops.py:517-600,
+# the profiler half of ``_instrumented``): each call runs inside a range
+# named ``hvd.<op>`` (profiler.py), an NVTX range too when its tensors
+# are on the card. Applied by rebinding, so the Horovod API (hvd.py)
+# and the ops' own callers go through it. With profiling off a call costs
+# one flag check. The other half of the reference's wrapper, metrics
+# recording and the stall inspector, waits for ROADMAP Queue A item 1
+# (rest).
+
+def _on_cuda(args, kwargs):
+    """Whether a call's tensors (the first tensor leaf of its first
+    argument), or else its process set's device, are on the card."""
+    if args:
+        for leaf in tree_leaves(args[0]):
+            if torch.is_tensor(leaf):
+                return leaf.is_cuda
+    for v in list(args) + list(kwargs.values()):
+        world = getattr(v, "world", None)
+        if world is not None:
+            return world.device.type == "cuda"
+    world = global_process_set.world
+    return world is not None and world.device.type == "cuda"
+
+
+def _instrumented(fn, op):
+    range_name = "hvd." + op
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not _profiler.enabled():
+            return fn(*args, **kwargs)
+        with _profiler.op_range(range_name, _on_cuda(args, kwargs)):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+for _fn, _op in (("hvd_allreduce", "allreduce"),
+                 ("hvd_allreduce_pytree", "grouped_allreduce"),
+                 ("hvd_allgather", "allgather"),
+                 ("hvd_alltoall", "alltoall"),
+                 ("hvd_reducescatter", "reducescatter"),
+                 ("hvd_broadcast", "broadcast"),
+                 ("hvd_broadcast_pytree", "grouped_broadcast"),
+                 ("allgather_object", "allgather_object"),
+                 ("broadcast_object", "broadcast_object"),
+                 ("barrier", "barrier")):
+    globals()[_fn] = _instrumented(globals()[_fn], _op)
+del _fn, _op

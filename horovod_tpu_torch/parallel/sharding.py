@@ -6,8 +6,8 @@ where two shardings meet (the psum after a row-parallel matmul, the
 all-gather at a sequence boundary, a ``ppermute`` in a ring) and
 differentiates them itself. Here each is a ``torch.autograd.Function``
 over ``ops/torch_ops.py`` on one group, whose backward is the adjoint of
-its forward. ``group=None`` (an axis the mesh does not have) is the
-identity.
+its forward. A group that moves nothing (:func:`solo`: ``None``, an
+axis the mesh does not have, or one rank) is the identity, with no call.
 
 A collective in a backward runs only where autograd reaches that node,
 and every rank of the group must run it. So a function whose outputs a
@@ -106,18 +106,25 @@ class _RingBlocks(torch.autograd.Function):
         return acc, None
 
 
+def solo(group):
+    """True when a collective over ``group`` moves nothing: no group, or a
+    group of one rank. The one place that decides it: every wrapper here
+    is then the identity, and the serving engine and loop ask it too."""
+    return group is None or group.size() == 1
+
+
 def copy_to(x, group):
     """Enter a region split over ``group`` (the input of a
     column-parallel matmul): the identity, and in the backward the sum of
     the ranks' gradients."""
-    return x if group is None else _CopyTo.apply(x, group)
+    return x if solo(group) else _CopyTo.apply(x, group)
 
 
 def reduce_from(x, group):
     """Leave it (the output of a row-parallel matmul): the sum of the
     ranks' partial ``x``; the backward hands the gradient on, the same on
     every rank."""
-    return x if group is None else _ReduceFrom.apply(x, group)
+    return x if solo(group) else _ReduceFrom.apply(x, group)
 
 
 def gather(x, group, dim):
@@ -125,7 +132,7 @@ def gather(x, group, dim):
     all-gather over ``seq``). Each rank uses the whole in its own way, so
     the backward sums the ranks' gradients and gives each its block
     (reduce-scatter)."""
-    return x if group is None else _Gather.apply(x, group, dim, False)
+    return x if solo(group) else _Gather.apply(x, group, dim, False)
 
 
 def gather_replicated(x, group, dim):
@@ -134,14 +141,14 @@ def gather_replicated(x, group, dim):
     activations are replicated over ``model``): each rank's gradient of
     the whole is then already the full one, so the backward keeps this
     rank's block, where a sum would multiply it by the group's size."""
-    return x if group is None else _Gather.apply(x, group, dim, True)
+    return x if solo(group) else _Gather.apply(x, group, dim, True)
 
 
 def all_to_all(x, group, split_dim, concat_dim):
     """``split_dim`` cut into one block per rank, block j to rank j, the
     received blocks concatenated on ``concat_dim`` in rank order; the
     backward is the inverse all-to-all."""
-    if group is None:
+    if solo(group):
         return x
     return _AllToAll.apply(x, group, split_dim, concat_dim)
 
@@ -156,7 +163,7 @@ def ragged_all_to_all(x, send_counts, group, capacity):
     rows get zero. Returns ``(recv [P, capacity, ...], recv_counts [P]
     int32)``, a count clamped to ``capacity``."""
     buf, counts = torch_ops.ragged_pack(x, send_counts, capacity)
-    if group is not None:
+    if not solo(group):
         counts = torch_ops.alltoall(counts, group)
     return all_to_all(buf, group, 0, 0), counts.clamp_max(capacity)
 
@@ -169,6 +176,6 @@ def ring_blocks(x, group):
     way back to its owner. All rotations are one node, so a rank that
     leaves blocks unused (the causal skip) still runs every rotation of
     the backward."""
-    if group is None or group.size() == 1:
+    if solo(group):
         return (x,)
     return _RingBlocks.apply(x, group)

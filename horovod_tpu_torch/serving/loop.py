@@ -1,7 +1,8 @@
 """The serve loop: the port of ``horovod_tpu/serving/loop.py``.
 
 Open-loop Poisson load in, tokens + latency spans out, over the port's
-kernel-free engine (:mod:`.engine`) on one device.
+kernel-free engine (:mod:`.engine`) on one device, or tensor-parallel
+over a mesh (``mesh=``; see "Under a mesh" below).
 
 One iteration = one token boundary:
 
@@ -39,15 +40,30 @@ Kill switches: ``HVD_SERVE_PREFIX_CACHE=0`` (or ``prefix_cache=False``)
 and ``spec_tokens=0`` restore the plain paths exactly — no prefix /
 speculation engine is even built and the new SERVE_* metrics see zero
 activity.
+
+Under a mesh: the reference is single-controller, one process driving
+every device with one scheduler. The port is multi-controller: every
+rank of the mesh runs its own ``ServeLoop`` on the same requests, and
+each engine step is a collective over the ranks that share its
+``model`` (and, for MoE, ``expert``) axis. Those ranks must take every
+decision alike, or they call different steps and deadlock in the first
+mismatched collective. Admission reads the clock (``arrival_t <=
+now``), and two ranks' clocks differ; so once per loop iteration rank 0
+of that group reads its clock and broadcasts it over the group, and
+every rank admits, preempts, hits the prefix cache and speculates from
+the same ``now`` and the same (all-gathered) logits. Token timestamps,
+which feed only the latency summary, stay on each rank's own clock.
 """
 
 import time
 
 import numpy as np
+import torch
 
 from ..observability import metrics as _metrics
 from ..observability import spans as _spans
-from ..device import resolve_device
+from ..ops import torch_ops
+from ..parallel.sharding import solo
 from . import engine, kv_cache, speculate
 from .prefix_cache import PrefixCache
 from .scheduler import (DEFAULT_KV_PAGES, DEFAULT_MAX_BATCH,
@@ -132,13 +148,19 @@ class ServeLoop:
     - ``prefill_chunk``: tokens per chunked-prefill call (default
       2 pages); ``batch_prefill=False`` forces the per-request prefill
       fallback (the counted A/B baseline).
+
+    ``mesh``: serve tensor-parallel over a
+    :class:`~..parallel.mesh.Mesh`, every rank with its own loop on the
+    same requests and ``params`` its shard (``convert.shard_params``);
+    the device is the mesh's. See the module's docstring.
     """
 
     def __init__(self, params, cfg, geo=None,
                  max_batch=DEFAULT_MAX_BATCH, mode="continuous",
                  load_reporter=None, report_interval=16,
                  prefix_cache=None, spec_tokens=None, drafter=None,
-                 prefill_chunk=None, batch_prefill=True, device=None):
+                 prefill_chunk=None, batch_prefill=True, device=None,
+                 mesh=None):
         if geo is None:
             geo = kv_cache.geometry(DEFAULT_KV_PAGES, DEFAULT_PAGE_SIZE,
                                     cfg.max_seq_len)
@@ -150,7 +172,8 @@ class ServeLoop:
         self.params = params
         self.cfg = cfg
         self.geo = geo
-        self.device = device = resolve_device(device)
+        self.device = device = kv_cache.placement(cfg, device, mesh)[0]
+        self._clock_group = _decision_group(cfg, mesh)
         self.max_batch = int(max_batch)
         self.mode = mode
         self.load_reporter = load_reporter
@@ -158,20 +181,22 @@ class ServeLoop:
         self.prefill_chunk = (min(geo.max_kv, 2 * geo.page_size)
                               if prefill_chunk is None
                               else int(prefill_chunk))
-        self.prefill_fn = engine.make_prefill(cfg, geo, device)
-        self.decode_fn = engine.make_decode_step(cfg, geo, device, max_batch)
-        self.bprefill_fn = (engine.make_batched_prefill(cfg, geo, device)
+        self.prefill_fn = engine.make_prefill(cfg, geo, device, mesh=mesh)
+        self.decode_fn = engine.make_decode_step(cfg, geo, device, max_batch,
+                                                 mesh=mesh)
+        self.bprefill_fn = (engine.make_batched_prefill(cfg, geo, device,
+                                                        mesh=mesh)
                             if batch_prefill and self.max_batch > 1
                             else None)
         self.chunk_fn = (engine.make_chunk_step(
-            cfg, geo, device, q_len=self.prefill_chunk)
+            cfg, geo, device, q_len=self.prefill_chunk, mesh=mesh)
             if use_prefix else None)
         self.spec_fn = (engine.make_chunk_step(
-            cfg, geo, device, q_len=self.spec_tokens + 1)
+            cfg, geo, device, q_len=self.spec_tokens + 1, mesh=mesh)
             if self.spec_tokens > 0 else None)
         self.drafter = drafter if drafter is not None \
             else speculate.NGramDrafter()
-        self.cache = kv_cache.make_cache(cfg, geo, device)
+        self.cache = kv_cache.make_cache(cfg, geo, device, mesh)
         self.alloc = PageAllocator(geo.n_pages, geo.page_size)
         self.prefix = PrefixCache(self.alloc) if use_prefix else None
         self.batcher = ContinuousBatcher(self.alloc, max_batch, mode,
@@ -183,7 +208,8 @@ class ServeLoop:
 
     def warmup(self):
         """Run every engine path once outside any measured window (the
-        first CUDA calls pay for library set-up and allocation). Every
+        first CUDA calls pay for library set-up and allocation); under a
+        mesh every rank runs each once, together. Every
         cache write routes to trash page 0 (all-zero block table,
         all-inactive batch), so the cache stays semantically untouched."""
         toks = np.zeros(self.geo.max_kv, np.int32)
@@ -380,6 +406,15 @@ class ServeLoop:
         def _now():
             return clock() - t0
 
+        def _shared_now():
+            """The time every rank of the decision group takes its
+            decisions from: rank 0's, broadcast (module docstring)."""
+            if self._clock_group is None:
+                return _now()
+            t = torch.tensor([_now()], dtype=torch.float64,
+                             device=self.device)
+            return float(torch_ops.broadcast(t, self._clock_group, 0)[0])
+
         def _boundary(done, produced_at):
             nonlocal preempt_seen, boundaries, pfx_evict_seen, spec_rej_seen
             for req in done:
@@ -456,7 +491,7 @@ class ServeLoop:
             _boundary(done, rids)
 
         while pending or not self.batcher.idle():
-            now = _now()
+            now = _shared_now()
             while pending and pending[0].arrival_t <= now:
                 self.batcher.submit(pending.pop(0), now)
             self.batcher.admit(now)
@@ -581,6 +616,20 @@ class ServeLoop:
             "prefill_batch_calls": self.loop_stats["prefill_batch_calls"],
             "chunk_fills": self.loop_stats["chunk_fills"],
         }
+
+
+def _decision_group(cfg, mesh):
+    """The group over which every rank must take the loop's decisions
+    alike: the ranks an engine step's collectives join (the model axis,
+    and the expert axis of an MoE model), or None where those
+    collectives move nothing (``sharding.solo``, as the steps decide)."""
+    if mesh is None:
+        return None
+    axes = tuple(a for a in ((cfg.expert_axis,) if cfg.n_experts > 0
+                             else ()) + (cfg.model_axis,)
+                 if a in mesh.axis_names)
+    group = mesh.groups(axes) if axes else None
+    return None if solo(group) else group
 
 
 def _tokens(logits):

@@ -5,7 +5,14 @@
 - Entry points called without ``device`` go to the CUDA card: on a box
   without one they raise instead of running on the CPU; with
   ``device="cpu"`` they run there (``hvd.init``: a gloo world of one
-  rank, shut down after).
+  rank, shut down after). Under a mesh (``make_cache(mesh=)``,
+  ``ServeLoop(mesh=)``) the device is the mesh's: a one-rank
+  ``{"model": 1}`` mesh over ``hvd.init()``'s world, which goes to the
+  card in the same way.
+- One entry point runs only on the CPU, by design: ``dryrun_multichip(n)``
+  simulates n ranks as threads over gloo, as the reference's dry run
+  forces the CPU, and measures nothing. It never touches CUDA, on a box
+  with a card or without.
 """
 
 import ast
@@ -19,7 +26,8 @@ torch.set_num_threads(1)
 
 import horovod_tpu_torch.hvd as hvd  # noqa: E402
 from horovod_tpu_torch.device import resolve_device  # noqa: E402
-from horovod_tpu_torch.graft_entry import entry  # noqa: E402
+from horovod_tpu_torch.graft_entry import (  # noqa: E402
+    dryrun_multichip, entry)
 from horovod_tpu_torch.models import resnet  # noqa: E402
 from horovod_tpu_torch.models import transformer as tfm  # noqa: E402
 from horovod_tpu_torch.models.convert import params_from_jax  # noqa: E402
@@ -62,12 +70,21 @@ def _entry_points(device):
     numpy_params = {"embed": np.zeros((32, 16), np.float32),
                     "layers": [{"wo": np.ones((2, 8, 16), np.float32)}]}
     kw = {} if device is None else {"device": device}
+
+    def mesh():
+        hvd.init(**kw)
+        return hvd.global_mesh({"model": 1})
+
     return {
         "init_params": lambda: tfm.init_params(cfg, gen, **kw),
         "params_from_jax": lambda: params_from_jax(numpy_params, **kw),
         "make_cache": lambda: kv_cache.make_cache(cfg, geo, **kw),
         "ServeLoop": lambda: ServeLoop(cpu_params, cfg, geo=geo,
                                        max_batch=2, **kw),
+        "make_cache(mesh=)": lambda: kv_cache.make_cache(cfg, geo,
+                                                         mesh=mesh()),
+        "ServeLoop(mesh=)": lambda: ServeLoop(cpu_params, cfg, geo=geo,
+                                              max_batch=2, mesh=mesh()),
         "create_train_state": lambda: resnet.create_train_state(
             gen, image_size=32, num_classes=10,
             model=resnet.ResNet((1, 1, 1, 1), num_classes=10, num_filters=8,
@@ -78,6 +95,7 @@ def _entry_points(device):
 
 
 ENTRY_POINTS = ["init_params", "params_from_jax", "make_cache", "ServeLoop",
+                "make_cache(mesh=)", "ServeLoop(mesh=)",
                 "create_train_state", "entry", "hvd.init"]
 
 
@@ -131,3 +149,18 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def test_dryrun_multichip_never_touches_cuda(monkeypatch, capsys):
+    """The one CPU-only entry point: any CUDA initialisation in it (a
+    tensor or generator on the card, a device query that starts CUDA)
+    raises, and CUDA is no more initialised after it than before."""
+    def no_cuda(*a, **k):
+        raise AssertionError("dryrun_multichip touched CUDA")
+
+    was = torch.cuda.is_initialized()
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_cuda)
+    monkeypatch.setattr(torch.cuda, "is_available", no_cuda)
+    dryrun_multichip(2)
+    assert torch.cuda.is_initialized() == was
+    assert capsys.readouterr().out.startswith("dryrun_multichip(2): ")

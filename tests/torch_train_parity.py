@@ -28,11 +28,12 @@ import torch.distributed as dist
 
 from horovod_tpu.models import resnet as jresnet
 from horovod_tpu.models import transformer as jtfm
+from horovod_tpu_torch.graft_entry import _on_ranks
 from horovod_tpu_torch.models import resnet as tresnet
 from horovod_tpu_torch.models import transformer as ttfm
 from horovod_tpu_torch.models.convert import params_from_jax, resnet_from_flax
 from horovod_tpu_torch.parallel import (
-    World, make_train_step, shard_batch, tree_flatten_with_path, tree_leaves)
+    make_train_step, shard_batch, tree_flatten_with_path, tree_leaves)
 
 # [B, S+1]: S = 48, so loss_chunk=16 runs three chunks.
 TOKENS_SHAPE = (2, 49)
@@ -297,6 +298,6 @@ def run_ranks(n, fn, timeout=60.0):
 
 def run_worlds(n, fn, timeout=60.0):
     """fn(world) on n threads, each with its own gloo ``World`` of n ranks
-    over a shared HashStore; returns the results in rank order."""
-    store = dist.HashStore()
-    return _on_threads(n, lambda r: fn(World(store, r, n, "cpu")), timeout)
+    over a shared HashStore; returns the results in rank order (the
+    package's own helper, which ``dryrun_multichip`` runs on)."""
+    return _on_ranks(n, fn, timeout)
