@@ -88,7 +88,20 @@ Phases (each prints its lines; any failure exits non-zero):
    at MOE_DP_EP_LAYERS layers, the experts gathered over data and the
    leaves cut over it left out of its all-reduce, step 0 held to the
    mesh-free step;
-8. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+8. pipeline: bert-large B=8 S=512 flash through parallel/pipeline.py
+   over ``create_mesh({"pipe": 1})`` on the same NCCL world, the
+   embedding outside the pipeline, the 24 blocks as stage slices, the
+   final layernorm, tied head and NLL per microbatch, M=4 microbatches,
+   under gpipe, 1f1b, zb (which falls back to 1f1b at one stage, the
+   ``single_stage`` fallback counted) and interleaved:2: step 0 in
+   float32 and bf16 held to the mesh-free ``tfm.loss_fn`` autograd step
+   (loss and every block leaf, TOL_PIPE) and to gpipe's
+   (TOL_PIPE_SCHED), B1-B3's launches a step against what the tables
+   imply (PIPE_LAUNCHES), every bf16 one on its TMA kernel, the peak
+   device memory of each (1f1b's below gpipe's), a falling loss and 3
+   timed AdamW steps of each beside the mesh-free ``make_train_step``,
+   and a profile of gpipe and 1f1b;
+9. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -96,7 +109,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-9. one JSON line of kernels, then the result line.
+10. one JSON line of kernels, then the result line.
 
 Every profile line opens its window through horovod_tpu_torch/profiler.py
 (``start``/``stop``; the trace goes to a temporary directory).
@@ -108,9 +121,10 @@ checks that two launches give the same bits, and times the kernel, the
 plain version and torch's own batch-norm reductions (yardsticks only).
 
 Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh),
-7 (MoE) and 8 (ResNet training) are the main paths: each starts with every
-kernel's launch count at 0 and must launch the kernels it runs, every
-bf16 launch of B1, B2 and B3 on its TMA/wgmma kernel. The card has one
+7 (MoE), 8 (the pipeline) and 9 (ResNet training) are the main paths:
+each starts with every kernel's launch count at 0 and must launch the
+kernels it runs, every bf16 launch of B1, B2 and B3 on its TMA/wgmma
+kernel. The card has one
 device and NCCL takes one rank per device, so every NCCL group here has
 one rank; more ranks are checked over gloo on the CPU
 (tests/test_torch_*.py). Exits with code 2, printing no result, when no
@@ -1792,6 +1806,255 @@ def phase_moe_dp_ep(torch, tfm, convert, dp, hvd, card):
     torch.cuda.empty_cache()
 
 
+# The pipeline phase: bert-large's 24 blocks through
+# parallel/pipeline.py over a {pipe: 1} mesh, M microbatches.
+PIPE_M = 4
+PIPE_SCHEDULES = (("gpipe", None), ("1f1b", None), ("zb", None),
+                  ("interleaved", 2))
+# B1's launches a step per block and microbatch, and B2's and B3's
+# (each), by schedule: gpipe and interleaved run each block's forward
+# once and autograd's backward once; 1f1b and zb (zb falls back to 1f1b
+# at one stage) run the forward without grad and again in the recompute.
+PIPE_LAUNCHES = {"gpipe": (1, 1), "interleaved": (1, 1), "1f1b": (2, 1),
+                 "zb": (2, 1)}
+# Step 0 through make_pipeline_value_and_grad against the mesh-free
+# tfm.loss_fn autograd step from the same parameters and tokens, flash
+# both: the loss, and every block leaf's gradient in relative norm.
+# float32: the same kernels on microbatches of 2 rows where the
+# reference runs 8 (cuBLAS may pick other GEMM algorithms), and the
+# weight gradients sum four microbatches' products in another order:
+# TOL_TRAIN_F32 for both. bf16: the same differences, rounded to bf16
+# at every activation and compounded over 24 layers, the kind of
+# difference of flash against gather: the train phase's bf16 gates.
+TOL_PIPE = {"float32": dict(loss=TOL_TRAIN_F32, grad=TOL_TRAIN_F32),
+            "bfloat16": dict(loss=TOL_TRAIN_BF16_LOSS,
+                             grad=TOL_TRAIN_BF16_GRAD)}
+# The schedules against gpipe from the same parameters: the same kernels
+# on the same microbatches; the gradients add the microbatches in
+# another order, and 1f1b/zb take the loss per microbatch where gpipe
+# takes it over the whole batch (the head's GEMM at 2 rows against 8, as
+# above). float32: 1e-5 on the loss and 1e-4 on every leaf in relative
+# norm; bf16: 2e-3 and 3e-2, the head's bf16 logits rounded in other
+# places and compounded back through 24 layers.
+TOL_PIPE_SCHED = {"float32": dict(loss=1e-5, grad=1e-4),
+                  "bfloat16": dict(loss=2e-3, grad=3e-2)}
+
+
+def _pipe_stack(torch, params, n_slices):
+    """bert-large's blocks as ``n_slices`` stage slices in network order:
+    slice k holds blocks [k*L/n, (k+1)*L/n), each leaf stacked on a
+    leading dim of n_slices, one entry of "layers" per block of a
+    slice."""
+    layers = params["layers"]
+    per = len(layers) // n_slices
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return torch.stack([x.detach() for x in xs])
+
+    return {"layers": [stack(*(layers[k * per + j] for k in range(n_slices)))
+                       for j in range(per)]}
+
+
+def _pipe_block_grads(dp, grads, per, V):
+    """{block leaf name: gradient} from a {pipe: 1} rank's gradients
+    (its rows are the V slices in order)."""
+    out = {}
+    for path, g in dp.tree_flatten_with_path(grads):
+        j = int(path.split("]")[1].lstrip("["))      # "['layers'][j]..."
+        rest = path.split("]", 2)[2]
+        for k in range(V):
+            out[f"['layers'][{k * per + j}]{rest}"] = g[k]
+    return out
+
+
+def _pipe_compare(torch, label, got, want, tol, ref_name):
+    """Print and check a (loss, {name: grad}) against another: the loss
+    and the worst leaf in relative norm, with how many are bit-equal."""
+    loss, grads = got
+    ref_loss, ref_grads = want
+    check(grads.keys() == ref_grads.keys(), f"{label}: other leaves")
+    rel = {n: ((g.float() - ref_grads[n].to(g.device).float()).norm()
+               / ref_grads[n].float().norm()).item()
+           for n, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    dl = abs(loss - ref_loss)
+    line = (f"{label} step 0 against {ref_name}: loss {loss:.6f} vs "
+            f"{ref_loss:.6f} |diff| {dl:.3g} (tol {tol['loss']}); "
+            f"{len(rel)} block leaves, worst gradient rel {rel[worst]:.3g} "
+            f"at {worst} (tol {tol['grad']}), "
+            f"{sum(r == 0 for r in rel.values())} bit-equal")
+    check(np.isfinite(loss) and dl <= tol["loss"]
+          and rel[worst] <= tol["grad"], line)
+    print(line)
+
+
+def phase_pipeline(torch, tfm, dp, fa, hvd, params, cfg, card):
+    """bert-large (B=8, S=512, flash) through parallel/pipeline.py over
+    ``create_mesh({"pipe": 1})`` on ``hvd.init()``'s NCCL world: the
+    embedding outside the pipeline, the 24 blocks as stage slices, the
+    final layernorm, the tied head and the NLL in ``loss_fn`` per
+    microbatch, M = PIPE_M. For each schedule of PIPE_SCHEDULES, in
+    float32 and bf16: step 0 held to the mesh-free autograd step and to
+    gpipe's, B1-B3's launches against PIPE_LAUNCHES, the peak device
+    memory (1f1b's below gpipe's); zb's fallback at one stage counted
+    (``single_stage``); then 3 timed AdamW steps of each schedule beside
+    the mesh-free ``make_train_step`` step, and a profile of gpipe and
+    1f1b."""
+    from horovod_tpu_torch.observability import metrics
+
+    mesh = hvd.global_mesh({"pipe": 1})
+    group = hvd.global_process_set.group
+    B, S, L = 8, 512, cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device="cuda")
+    n_blocks = sum(x.numel() for x in dp.tree_leaves(params["layers"]))
+    fallbacks = metrics.PIPELINE_ZB_FALLBACKS["single_stage"]
+    was_on = metrics.enabled()
+    metrics.enable()       # the zb fallback is counted with metrics on
+
+    def embed(c):
+        """The pipeline's input: the mesh-free loss's embedding."""
+        dt = c.compute_dtype
+        x = params["embed"].to(dt)[tokens[:, :-1]]
+        return x + params["pos_embed"].to(dt)[:S][None]
+
+    def stage_fn_for(c):
+        def stage_fn(p, h):
+            for layer in p["layers"]:
+                h = tfm.apply_block(layer, h, c, impl="flash")
+            return h
+        return stage_fn
+
+    def loss_fn(out, b):
+        h = tfm._layer_norm(out, params["final_ln"])
+        return tfm._nll(h, b["targets"], params["embed"]).mean()
+
+    peaks = {}
+    try:
+        for dname in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=dname, attn_impl="flash")
+            # the mesh-free step 0: its block gradients wait on the host
+            rp = _trainable(torch, params)
+            leaves = dp.tree_leaves(rp["layers"])
+            names = [f"['layers']{n}" for n, _ in
+                     dp.tree_flatten_with_path(rp["layers"])]
+            with torch.enable_grad():
+                loss = tfm.loss_fn(rp, {"tokens": tokens}, c)
+                grads = torch.autograd.grad(loss, leaves)
+            ref = (loss.item(), {n: g.cpu() for n, g in zip(names, grads)})
+            del rp, leaves, grads, loss
+            torch.cuda.empty_cache()
+            batch = {"x": embed(c), "targets": tokens[:, 1:]}
+            first = None
+            for name, V in PIPE_SCHEDULES:
+                sp = dp.shard_stage_params(
+                    _pipe_stack(torch, params, V or 1), mesh,
+                    virtual_stages=V or 1)
+                n0 = fallbacks.value
+                vg = dp.make_pipeline_value_and_grad(
+                    stage_fn_for(c), loss_fn, mesh, n_microbatches=PIPE_M,
+                    schedule=name, virtual_stages=V)
+                if name == "zb":
+                    line = (f"pipeline zb over {mesh}: ran as "
+                            f"{vg.schedule_label}, single_stage fallbacks "
+                            f"+{fallbacks.value - n0:g}")
+                    check(vg.schedule_label == "1f1b"
+                          and fallbacks.value - n0 == 1, line)
+                    print(line)
+                before = _launches(fa)
+                by = [dict(w.variant_launches) for w in
+                      (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda,
+                       fa.flash_bwd_dkv_cuda)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                loss, g = vg(sp, batch)
+                loss = loss.item()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                ran = [a - b for a, b in zip(_launches(fa), before)]
+                tma = [w.variant_launches["tma"] - b["tma"] for w, b in
+                       zip((fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda,
+                            fa.flash_bwd_dkv_cuda), by)]
+                f, b_ = PIPE_LAUNCHES[name]
+                want = [f * L * PIPE_M, b_ * L * PIPE_M, b_ * L * PIPE_M]
+                label = (f"pipeline bert-large B={B} S={S} {dname} flash "
+                         f"{name} (label {vg.schedule_label}) over {mesh} "
+                         f"({group.name()}), M={PIPE_M}")
+                line = (f"{label}: B1/B2/B3 launches {ran} (tables: {want}),"
+                        f" on tma {tma}; peak device memory {peak:.2f} GiB")
+                check(ran == want and (dname == "float32" or tma == want),
+                      line)
+                print(line)
+                got = (loss, {n: x.detach() for n, x in _pipe_block_grads(
+                    dp, g, L // (V or 1), V or 1).items()})
+                _pipe_compare(torch, label, got, ref, TOL_PIPE[dname],
+                              "the mesh-free step's")
+                if first is None:
+                    first = (loss, {n: x.cpu() for n, x in got[1].items()})
+                else:
+                    _pipe_compare(torch, label, got, first,
+                                  TOL_PIPE_SCHED[dname], "gpipe's")
+                peaks[dname, name] = peak
+                del sp, vg, g, got
+                torch.cuda.empty_cache()
+            line = (f"pipeline peak device memory {dname}: "
+                    + ", ".join(f"{n} {peaks[dname, n]:.2f} GiB"
+                                for n, _ in PIPE_SCHEDULES))
+            check(peaks[dname, "1f1b"] < peaks[dname, "gpipe"], line)
+            print(line)
+            del ref, first, batch
+
+        # Timing: bf16 AdamW steps over the blocks (the embedding looked
+        # up in each step, its table and the head not updated) beside the
+        # mesh-free make_train_step (every leaf updated).
+        rp = _trainable(torch, params)
+        with torch.enable_grad():
+            rstep = dp.make_train_step(
+                lambda p, b: tfm.loss_fn(p, b, dataclasses.replace(
+                    cfg, attn_impl="flash")), _adamw(torch, dp, rp), group)
+            rstep(rp, {"tokens": tokens})
+            _, ref_sec = _timed_steps(torch, rstep, rp, {"tokens": tokens}, 3)
+        del rp, rstep
+        torch.cuda.empty_cache()
+        c = dataclasses.replace(cfg, attn_impl="flash")
+        for name, V in PIPE_SCHEDULES:
+            sp = dp.shard_stage_params(_pipe_stack(torch, params, V or 1),
+                                       mesh, virtual_stages=V or 1)
+            for x in dp.tree_leaves(sp):
+                x.requires_grad_()
+            step = dp.make_pipeline_train_step(
+                stage_fn_for(c), loss_fn,
+                torch.optim.AdamW(dp.tree_leaves(sp), **ADAMW), mesh,
+                n_microbatches=PIPE_M, schedule=name, virtual_stages=V)
+
+            def one():
+                return step(sp, {"x": embed(c), "targets": tokens[:, 1:]})
+
+            losses = [one().item()]
+            more, sec = _timed_steps(torch, lambda p, b: one(), None, None, 3)
+            losses += more
+            line = (f"pipeline {name} bf16: losses "
+                    f"{[round(x, 5) for x in losses]}")
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0], line)
+            print(line)
+            print(f"time pipeline bert-large B={B} S={S} bf16 flash {name} "
+                  f"over {mesh} M={PIPE_M} ({card}): {sec * 1e3:.2f} ms/step, "
+                  f"{B * S / sec:.1f} tokens/s ({n_blocks / 1e6:.1f} M block "
+                  f"params updated); mesh-free make_train_step "
+                  f"{ref_sec * 1e3:.2f} ms/step, {B * S / ref_sec:.1f} "
+                  f"tokens/s (3 steps each, after the first)")
+            if name in ("gpipe", "1f1b"):
+                profile_line(torch, f"pipeline bert-large B={B} S={S} bf16 "
+                             f"{name} step", one)
+            del sp, step
+            torch.cuda.empty_cache()
+    finally:
+        if not was_on:
+            metrics.disable()
+
+
 def b4_bound_ms(R, C, dtype_name, same, spec):
     """B4's least time: each distinct input read once (``same``: a and b
     are one tensor) and s, p written once in float32, over the memory
@@ -2179,6 +2442,9 @@ def main():
 
         moe_ran, _ = run_path("moe", moe_phase,
                               ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+        pipe_ran, _ = run_path("pipeline", lambda: phase_pipeline(
+            torch, tfm, dp, fa, hvd, params, cfg, card),
+            ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
         del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
@@ -2186,7 +2452,8 @@ def main():
             ["paired_reduce"])
     finally:
         hvd.shutdown()
-    paths = (served, trained, hvd_ran, mesh_ran, moe_ran, resnet_ran)
+    paths = (served, trained, hvd_ran, mesh_ran, moe_ran, pipe_ran,
+             resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}

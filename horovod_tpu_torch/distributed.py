@@ -85,7 +85,8 @@ def init(device=None):
     C++ core's defaults: rank 0 of 1, local = global, cross 0 of 1) and
     ``HVD_JAX_COORD_ADDR``, the ``host:port`` of the ``TCPStore`` that
     rank 0 hosts; a job of one rank without an address meets in a
-    ``HashStore``.
+    ``HashStore``. ``HVD_JAX_COORD_TIMEOUT`` (seconds, default 120)
+    bounds every wait: the store's and each process group's.
 
     ``device=None`` means the CUDA card ``HVD_LOCAL_RANK`` (made current)
     and NCCL; it raises where there is no card. ``device="cpu"`` means
@@ -100,6 +101,7 @@ def init(device=None):
     if device.type == "cuda":
         device = torch.device("cuda", local_rank)
         torch.cuda.set_device(device)
+    timeout = _env("HVD_JAX_COORD_TIMEOUT", 120)
     addr = os.environ.get("HVD_JAX_COORD_ADDR")
     if addr:
         host, _, port = addr.rpartition(":")
@@ -108,7 +110,6 @@ def init(device=None):
                 f"HVD_JAX_COORD_ADDR={addr!r} is not host:port (a "
                 f"multi-host launch that negotiates its addresses is not "
                 f"ported yet)")
-        timeout = _env("HVD_JAX_COORD_TIMEOUT", 120)
         store = dist.TCPStore(host, int(port), size, rank == 0,
                               timeout=datetime.timedelta(seconds=timeout))
     elif size == 1:
@@ -117,7 +118,7 @@ def init(device=None):
         raise ValueError(
             f"HVD_SIZE={size} needs HVD_JAX_COORD_ADDR, the host:port of "
             f"the store that rank 0 hosts")
-    world = World(store, rank, size, device)
+    world = World(store, rank, size, device, timeout)
     global_process_set.bind(world)
     _job = _Job(world, local_rank, local_size, _env("HVD_CROSS_RANK", 0),
                 _env("HVD_CROSS_SIZE", 1))

@@ -3,7 +3,9 @@
 
 Off unless ``HVD_METRICS=1`` (or :func:`enable`): a disabled metric does
 nothing, so the serve loop's instrumentation costs one flag check.
-Label-less only; the Prometheus exposition waits for a later slice.
+Label-less only (the pipeline metrics at the end say how they stand in
+for the reference's labels); the Prometheus exposition waits for a later
+slice.
 """
 
 import os
@@ -124,3 +126,37 @@ SERVE_PREFIX_EVICTIONS = counter(
     "Cached prefix pages LRU-evicted back to the pool")
 SERVE_SPEC_REJECTED = counter(
     "hvd_serve_spec_rejected", "Draft tokens the target model rejected")
+
+# Pipeline parallelism (parallel/pipeline.py). The reference labels
+# PIPELINE_TRACES by (stages, microbatches, schedule), PIPELINE_STEPS by
+# schedule and PIPELINE_ZB_FALLBACKS by reason; these metrics have no
+# labels yet, so the first two count every schedule together and the
+# fallbacks are one counter per reason, all under the reference's name,
+# in PIPELINE_ZB_FALLBACKS[reason].
+PIPELINE_TRACES = counter(
+    "hvd_pipeline_traces_total",
+    "pipeline_apply schedule constructions (one per call or built step)")
+PIPELINE_BUBBLE = gauge(
+    "hvd_pipeline_bubble_fraction",
+    "Ideal (closed-form) bubble fraction of the last-built pipeline "
+    "schedule — e.g. (S-1)/(M+S-1) for gpipe")
+PIPELINE_BUBBLE_MEASURED = gauge(
+    "hvd_pipeline_bubble_measured_fraction",
+    "Measured bubble fraction of the last-built schedule: 1 - occupied "
+    "rank-tick slots / (ticks x stages), counted from the very tables "
+    "the tick loop runs")
+PIPELINE_TICKS = gauge(
+    "hvd_pipeline_schedule_ticks",
+    "Total tick count T of the last-built pipeline schedule (training "
+    "accounting: forward-only schedules mirror the forward table)")
+PIPELINE_STEPS = counter(
+    "hvd_pipeline_steps_total",
+    "Instrumented pipeline train steps executed (only counted when "
+    "metrics were enabled at step-build time)")
+ZB_FALLBACK_REASONS = ("single_stage", "ring_alias", "unplaced_bw",
+                       "table_error")
+PIPELINE_ZB_FALLBACKS = {
+    reason: counter(
+        "hvd_pipeline_zb_fallbacks_total",
+        f"ZB-H1 requests that fell back to plain 1F1B, reason={reason}")
+    for reason in ZB_FALLBACK_REASONS}

@@ -98,20 +98,22 @@ def allreduce(x, group, op=Average):
     return allreduce_(_fresh(x), group, op)
 
 
-def sendrecv(x, group, dst, src):
-    """Send ``x`` to group rank ``dst`` and return the tensor group rank
-    ``src`` sends, as one batch (what ``dist.batch_isend_irecv`` does,
-    on the group's own backend object, which need not be registered):
-    NCCL coalesces the pair into one group call, gloo posts both before
-    waiting on either, so no order of the ranks can deadlock. The ring's
-    rotation and Adasum's exchange."""
-    x = x.contiguous()
-    got = torch.empty_like(x)
+def p2p(group, sends=(), recvs=()):
+    """Post ``sends`` (``[(tensor, dst)]``) and ``recvs`` (``[(buffer,
+    src)]``; ranks of ``group``) as one batch and wait for all of them
+    (what ``dist.batch_isend_irecv`` does, on the group's own backend
+    object, which need not be registered): NCCL coalesces the batch into
+    one group call, gloo posts every op before waiting on any, so no
+    order of the ranks can deadlock. The sends and receives of one pair
+    of ranks match in the order posted."""
+    if not sends and not recvs:
+        return
     coalesce = group.supports_coalescing
     try:
         if coalesce:
             group._start_coalescing()
-        works = [group.send([x], dst, 0), group.recv([got], src, 0)]
+        works = [group.send([x], dst, 0) for x, dst in sends]
+        works += [group.recv([buf], src, 0) for buf, src in recvs]
         if coalesce:
             works = [group._end_coalescing()]
     except dist.DistError as e:
@@ -121,6 +123,15 @@ def sendrecv(x, group, dst, src):
             work.wait()
         except RuntimeError as e:
             raise HorovodInternalError(f"collective failed: {e}") from e
+
+
+def sendrecv(x, group, dst, src):
+    """Send ``x`` to group rank ``dst`` and return the tensor group rank
+    ``src`` sends, as one batch (:func:`p2p`). The ring's rotation and
+    Adasum's exchange."""
+    x = x.contiguous()
+    got = torch.empty_like(x)
+    p2p(group, [(x, dst)], [(got, src)])
     return got
 
 

@@ -1,7 +1,6 @@
-"""Data, tensor, sequence and expert parallelism and meshes over
-``torch.distributed`` process groups: the port of
-``horovod_tpu/parallel/`` as far as it is done. Pipeline parallelism
-comes in a later slice (ROADMAP Queue A).
+"""Data, tensor, sequence, expert and pipeline parallelism and meshes
+over ``torch.distributed`` process groups: the port of
+``horovod_tpu/parallel/``.
 """
 
 from .data_parallel import (  # noqa: F401
@@ -20,11 +19,21 @@ from .expert_parallel import (  # noqa: F401
     report_dispatch,
 )
 from .mesh import Mesh, World, create_mesh, mesh_axis_size  # noqa: F401
+from .pipeline import (  # noqa: F401
+    make_pipeline_train_step,
+    make_pipeline_value_and_grad,
+    pipeline_apply,
+    shard_stage_params,
+)
 from .ring_attention import (  # noqa: F401
     make_ring_attention,
     ring_attention,
     stripe_sequence,
     unstripe_sequence,
+)
+from .schedules import (  # noqa: F401
+    resolve_schedule,
+    schedule_info,
 )
 from .sharding import (  # noqa: F401
     all_to_all,

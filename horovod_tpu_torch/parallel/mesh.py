@@ -14,24 +14,39 @@ group (:func:`new_group`), and never from the process-global default
 group, so several worlds can live in one process.
 """
 
+import datetime
 import itertools
 import math
+import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 
-def new_group(store, prefix, rank, size, device):
+def coord_timeout():
+    """Seconds a rank waits for its peers: ``HVD_JAX_COORD_TIMEOUT``
+    (default 120), the timeout ``distributed.init`` gives its store."""
+    return int(os.environ.get("HVD_JAX_COORD_TIMEOUT", "120"))
+
+
+def new_group(store, prefix, rank, size, device, timeout=None):
     """A process group of ``size`` ranks that meet in ``store`` under
     ``prefix``: NCCL for a CUDA device, gloo for the CPU. Each member
-    calls it with the same prefix and its own rank in the group."""
+    calls it with the same prefix and its own rank in the group. Every
+    wait of the group (its connect and each collective) fails after
+    ``timeout`` seconds (default :func:`coord_timeout`), where the
+    backends' own default is 30 minutes: a rank whose peer died raises."""
     store = dist.PrefixStore(prefix, store)
+    wait = datetime.timedelta(
+        seconds=coord_timeout() if timeout is None else timeout)
     kind = torch.device(device).type
     if kind == "cuda":
-        return dist.ProcessGroupNCCL(store, rank, size)
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = wait
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
     if kind == "cpu":
-        return dist.ProcessGroupGloo(store, rank, size)
+        return dist.ProcessGroupGloo(store, rank, size, wait)
     raise ValueError(f"no process group backend for device {device!r}")
 
 
@@ -39,13 +54,15 @@ class World:
     """The ranks of one job as this rank sees them: the store they share,
     this rank, their number, this rank's device, and ``group``, the
     process group of all of them. Every other group of the job is made by
-    :meth:`subgroup`."""
+    :meth:`subgroup`. ``timeout``: seconds any group of the world waits
+    for its peers (:func:`new_group`)."""
 
-    def __init__(self, store, rank, size, device):
+    def __init__(self, store, rank, size, device, timeout=None):
         self.store = store
         self.rank = int(rank)
         self.size = int(size)
         self.device = torch.device(device)
+        self.timeout = coord_timeout() if timeout is None else timeout
         self._ids = itertools.count()
         self._groups = []
         self.group = self.subgroup(range(self.size))
@@ -60,7 +77,7 @@ class World:
         if self.rank not in ranks:
             return None
         group = new_group(self.store, prefix, ranks.index(self.rank),
-                          len(ranks), self.device)
+                          len(ranks), self.device, self.timeout)
         self._groups.append(group)
         return group
 

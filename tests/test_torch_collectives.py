@@ -358,7 +358,8 @@ def test_failed_collective_raises_horovod_internal_error():
     HorovodInternalError, not the backend's error."""
     store = dist.HashStore()
     groups = _on_threads(2, lambda r: dist.ProcessGroupGloo(
-        dist.PrefixStore("t", store), r, 2), timeout=60)
+        dist.PrefixStore("t", store), r, 2, datetime.timedelta(seconds=60)),
+        timeout=60)
     groups[1].set_timeout(datetime.timedelta(seconds=1))
     groups[0].abort()
     with pytest.raises(HorovodInternalError, match="collective failed"):

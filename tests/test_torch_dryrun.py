@@ -14,6 +14,14 @@ port reaches.
   ``shard_map`` version's within 1e-5 (the reference's exercise checks
   its output but does not return it, so its body is repeated here to
   return it).
+- The pipeline exercises against their JAX counterparts, whose bodies
+  are repeated here to return what they check: the gpipe forward
+  against JAX's ``pipeline_apply`` within 1e-5; each schedule's loss
+  (1e-5) and gradients (1e-4) against JAX's
+  ``make_pipeline_value_and_grad`` on the same slices; the composed
+  16-rank step's loss and gradients against the reference's
+  single-device composition in JAX (its 16-device mesh needs a process
+  of its own, as the reference spawns one), within 1e-5 and 1e-4.
 """
 
 import dataclasses
@@ -33,6 +41,7 @@ torch.set_num_threads(1)
 import __graft_entry__ as jentry  # noqa: E402
 from horovod_tpu.models import transformer as jtfm  # noqa: E402
 from horovod_tpu.parallel import moe_dispatch_combine_ragged  # noqa: E402
+from horovod_tpu.parallel import pipeline as jpipe  # noqa: E402
 from horovod_tpu_torch import graft_entry  # noqa: E402
 from horovod_tpu_torch.models import transformer as ttfm  # noqa: E402
 from horovod_tpu_torch.models.convert import params_from_jax  # noqa: E402
@@ -53,10 +62,14 @@ def test_dryrun_multichip_prints_its_line(n, capsys):
     assert len(lines) == 1
     assert lines[0].startswith(f"dryrun_multichip({n}): mesh=({data},{seq},"
                                f"{model}) loss=")
-    # The serve-prefix exercise's hit ratio: 24 cached prompt tokens of
-    # the two 26-token prompts admitted with the cache on.
-    assert lines[0].endswith("ragged-moe ok, serve-prefix ok (warm hit "
-                             f"ratio {24 / 52:.2f}) — OK")
+    # The pipeline exercises, named as the reference names them, and the
+    # serve-prefix exercise's hit ratio: 24 cached prompt tokens of the
+    # two 26-token prompts admitted with the cache on.
+    assert lines[0].endswith(
+        "ragged-moe ok, pipeline ok, pipeline-schedules ok "
+        "(gpipe/1f1b/interleaved/zb grad-parity, bubble orderings hold), "
+        "composed-16dev ok (pp x dp x tp x ep grad parity), serve-prefix "
+        f"ok (warm hit ratio {24 / 52:.2f}) — OK")
     assert took < 30.0, took
 
 
@@ -153,3 +166,83 @@ def test_ragged_moe_exercise_matches_shard_map():
     for i, got in run_worlds(n, rank):
         np.testing.assert_allclose(got, want[i * rows:(i + 1) * rows],
                                    atol=TOL, rtol=0)
+
+
+def test_pipeline_exercise_matches_jax():
+    """The body of ``__graft_entry__._pipeline_exercise`` at 8 devices
+    (4 stages), returning JAX's outputs."""
+    S, D = 4, 8
+    rng = np.random.default_rng(5)
+    W = rng.normal(size=(S, D, D)).astype(np.float32) / np.sqrt(D)
+    x = rng.normal(size=(8, D)).astype(np.float32)
+    mesh = Mesh(np.asarray(jax.devices()[:S]), ("pipe",))
+    want = np.asarray(jax.jit(lambda w, x: jpipe.pipeline_apply(
+        lambda p, h: jnp.tanh(h @ p["w"]), {"w": w}, x, mesh,
+        n_microbatches=4))(jnp.asarray(W), jnp.asarray(x)))
+    got = graft_entry._pipeline_exercise(8)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+def test_pipeline_schedule_exercise_matches_jax():
+    """At 4 devices (4 stage slices): each schedule's loss and gradient,
+    JAX's from one jitted program per mesh over the same slices."""
+    SV, D, B = 4, 8, 16
+    rng = np.random.default_rng(11)
+    W = rng.normal(size=(SV, D, D)).astype(np.float32) / np.sqrt(D)
+    x = rng.normal(size=(B, D))
+    y = rng.normal(size=(B, D))
+    runs = (("gpipe", SV, None), ("1f1b", SV, None),
+            ("interleaved", SV // 2, 2), ("zb", SV, None))
+
+    def body(w, batch, S):
+        out = {}
+        mesh = Mesh(np.asarray(jax.devices()[:S]), ("pipe",))
+        for name, S_, V in runs:
+            if S_ != S:
+                continue
+            vg = jpipe.make_pipeline_value_and_grad(
+                lambda p, h: jnp.tanh(h @ p["w"]),
+                lambda o, b: jnp.mean((o - b["y"]) ** 2), mesh,
+                n_microbatches=SV, schedule=name, virtual_stages=V)
+            loss, g = vg({"w": w}, batch)
+            out[name] = (loss, g["w"])
+        return out
+
+    batch = {"x": jnp.asarray(x, jnp.float32),
+             "y": jnp.asarray(y, jnp.float32)}
+    want = {}
+    for S in (SV, SV // 2):
+        want.update(jax.jit(body, static_argnums=2)(jnp.asarray(W), batch, S))
+    got = graft_entry._pipeline_schedule_exercise(4)
+    assert got.keys() == want.keys()
+    for name, (loss, g) in got.items():
+        assert abs(loss - float(want[name][0])) <= TOL, name
+        np.testing.assert_allclose(g, np.asarray(want[name][1]), atol=1e-4,
+                                   rtol=0, err_msg=name)
+
+
+def test_composed_exercise_matches_jax_composition():
+    """``ref_loss`` of ``__graft_entry__._composed_child``: the same
+    two stages' math on one device, with the same parameters."""
+    W, x, y, _ = graft_entry._composed_params()
+
+    def ref_loss(params, xb, yb):
+        h = xb
+        for s in range(2):
+            h2 = jnp.tanh(h @ params["proj"][s])
+            probs = jax.nn.softmax(h2 @ params["router"][s], axis=-1)
+            e = jnp.argmax(probs, axis=-1)
+            gate = jnp.take_along_axis(probs, e[:, None], 1)[:, 0]
+            hh = jax.nn.gelu(jnp.einsum("td,tdf->tf", h2,
+                                        params["w_in"][s][e]))
+            moe = jnp.einsum("tf,tfd->td", hh, params["w_out"][s][e])
+            h = h2 + gate[:, None] * moe
+        return jnp.mean((h - yb) ** 2)
+
+    want, want_grads = jax.jit(jax.value_and_grad(ref_loss))(
+        jax.tree.map(jnp.asarray, W), jnp.asarray(x), jnp.asarray(y))
+    loss, grads = graft_entry._composed_16dev_exercise()
+    assert abs(loss - float(want)) <= TOL, (loss, float(want))
+    for k in W:
+        np.testing.assert_allclose(grads[k], np.asarray(want_grads[k]),
+                                   atol=1e-4, rtol=0, err_msg=k)

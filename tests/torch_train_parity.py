@@ -17,7 +17,9 @@
 """
 
 import dataclasses
+import datetime
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +30,7 @@ import torch.distributed as dist
 
 from horovod_tpu.models import resnet as jresnet
 from horovod_tpu.models import transformer as jtfm
-from horovod_tpu_torch.graft_entry import _on_ranks
+from horovod_tpu_torch.graft_entry import _JOIN_GRACE, _on_ranks
 from horovod_tpu_torch.models import resnet as tresnet
 from horovod_tpu_torch.models import transformer as ttfm
 from horovod_tpu_torch.models.convert import params_from_jax, resnet_from_flax
@@ -264,36 +266,42 @@ def grad_vector(grads):
 
 
 def _on_threads(n, fn, timeout):
-    """fn(rank) on n threads; the results in rank order. Each thread is
-    joined with a timeout, and a thread still alive fails the test."""
-    out, errs = [None] * n, [None] * n
+    """fn(rank) on n threads; the results in rank order. The threads are
+    joined until ``timeout`` plus a grace of a few seconds: a thread
+    still alive then fails the test. The error re-raised is the first
+    one a rank met."""
+    out, errs = [None] * n, []
 
     def target(rank):
         try:
             out[rank] = fn(rank)
         except BaseException as e:  # re-raised in the test's thread
-            errs[rank] = e
+            errs.append(e)
 
     threads = [threading.Thread(target=target, args=(r,), daemon=True)
                for r in range(n)]
+    deadline = time.monotonic() + timeout + _JOIN_GRACE
     for t in threads:
         t.start()
     for t in threads:
-        t.join(timeout)
+        t.join(max(0.0, deadline - time.monotonic()))
+    if errs:
+        raise errs[0]
     assert not any(t.is_alive() for t in threads), "a rank did not finish"
-    for e in errs:
-        if e is not None:
-            raise e
     return out
 
 
 def run_ranks(n, fn, timeout=60.0):
     """fn(group, rank) on n threads, one ProcessGroupGloo each over a
     shared HashStore; returns the results in rank order. No process is
-    spawned."""
+    spawned. The store and the groups wait ``timeout`` seconds at most,
+    so a rank whose peer failed raises instead of blocking."""
     store = dist.HashStore()
+    wait = datetime.timedelta(seconds=timeout)
+    store.set_timeout(wait)
     return _on_threads(
-        n, lambda r: fn(dist.ProcessGroupGloo(store, r, n), r), timeout)
+        n, lambda r: fn(dist.ProcessGroupGloo(store, r, n, wait), r),
+        timeout)
 
 
 def run_worlds(n, fn, timeout=60.0):
