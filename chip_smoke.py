@@ -101,7 +101,21 @@ Phases (each prints its lines; any failure exits non-zero):
    device memory of each (1f1b's below gpipe's), a falling loss and 3
    timed AdamW steps of each beside the mesh-free ``make_train_step``,
    and a profile of gpipe and 1f1b;
-9. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+9. checkpoint: bert-large's train state (f32 params and AdamW moments,
+   ~4 GB) through horovod_tpu_torch/checkpoint.py, with B=8 S=512 bf16
+   flash steps through ``make_train_step`` over the same NCCL world:
+   step 0, a sync save of ``{params, opt: optimizer_state_tree}`` into a
+   fresh temporary directory, step 1; a restore into fresh params and a
+   fresh AdamW (every leaf bit-equal to the snapshot) and step 1 again,
+   bit-equal to the uninterrupted step 1 or within TOL_HVD (the line
+   says which held); an async save followed at once by a step that
+   updates the saved tensors in place, ``wait`` and a restore, bit-equal
+   to the snapshot; a save and restore of ``shard_params``-marked params
+   over ``{"model": 1}``; the bytes written, the sync save's wall time
+   against the async save's blocking time, ``write_ms``, restore ms and
+   GB/s, and the free disk space first; B1-B3's launches over the four
+   steps. Each step directory is deleted once checked;
+10. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -109,7 +123,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-10. one JSON line of kernels, then the result line.
+11. one JSON line of kernels, then the result line.
 
 Every profile line opens its window through horovod_tpu_torch/profiler.py
 (``start``/``stop``; the trace goes to a temporary directory).
@@ -121,7 +135,8 @@ checks that two launches give the same bits, and times the kernel, the
 plain version and torch's own batch-norm reductions (yardsticks only).
 
 Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh),
-7 (MoE), 8 (the pipeline) and 9 (ResNet training) are the main paths:
+7 (MoE), 8 (the pipeline), 9 (the checkpoint) and 10 (ResNet training)
+are the main paths:
 each starts with every kernel's launch count at 0 and must launch the
 kernels it runs, every bf16 launch of B1, B2 and B3 on its TMA/wgmma
 kernel. The card has one
@@ -138,6 +153,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2055,6 +2071,231 @@ def phase_pipeline(torch, tfm, dp, fa, hvd, params, cfg, card):
             metrics.disable()
 
 
+def _bit_equal(torch, dp, got, want):
+    """(leaves of ``got`` bit-equal to ``want``'s, all leaves, the first
+    names that differ)."""
+    pairs = list(zip(dp.tree_flatten_with_path(got),
+                     dp.tree_flatten_with_path(want)))
+    bad = [n for (n, a), (_, b) in pairs
+           if not (a.dtype == b.dtype and a.shape == b.shape
+                   and torch.equal(a.detach().to(b.device), b))]
+    return len(pairs) - len(bad), len(pairs), bad[:3]
+
+
+def _wall_ms(torch, fn):
+    """``fn()`` and its wall time in ms, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _host_rates(torch, root, nbytes=1 << 30):
+    """GB/s of what a save and a restore do to each byte on this host,
+    over ``nbytes``: zlib.crc32, np.save into memory (and the copy out),
+    a write with fsync to ``root``'s disk, a read of it back (warm: just
+    written), and a copy from pageable host memory to the card."""
+    import io
+    import zlib
+
+    buf = np.full(nbytes, 7, np.uint8)
+    path = os.path.join(root, "rates.bin")
+    rates = {}
+
+    def rate(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        rates[name] = nbytes / (time.perf_counter() - t0) / 1e9
+        return out
+
+    def write():
+        with open(path, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+
+    def to_card():
+        torch.from_numpy(buf).to("cuda")
+        torch.cuda.synchronize()
+
+    rate("crc32", lambda: zlib.crc32(buf))
+    b = io.BytesIO()
+    data = rate("np.save", lambda: (np.save(b, buf), b.getvalue())[1])
+    rate("write+fsync", write)
+    with open(path, "rb") as f:
+        rate("read (warm)", f.read)
+    os.remove(path)
+    rate("host-to-card (pageable)", to_card)
+    return rates
+
+
+def phase_checkpoint(torch, tfm, dp, fa, ckpt, convert, hvd, params, cfg,
+                     card):
+    """bert-large's train state (f32 params and AdamW moments, B=8 S=512
+    bf16 flash through make_train_step over ``hvd.init()``'s NCCL world)
+    through horovod_tpu_torch/checkpoint.py in a fresh temporary
+    directory: step 0, a sync save of ``{params, opt:
+    optimizer_state_tree}``, step 1; a restore into fresh params and a
+    fresh AdamW, every leaf bit-equal to the snapshot, and step 1 again,
+    bit-equal to the uninterrupted step 1 or within TOL_HVD (the line
+    says which held); then an async save, a step that updates the same
+    tensors in place at once, ``wait`` and a restore, bit-equal to the
+    snapshot; and one save and restore of ``shard_params``-marked params
+    over ``{"model": 1}``. Prints the bytes, the sync save's wall time
+    against the async save's blocking time (``snapshot_stall_ms``),
+    ``write_ms``, restore ms and GB/s, the free disk space before, and
+    the host's rates for each thing a save or a restore does to a byte
+    (``_host_rates``)."""
+    from horovod_tpu_torch.parallel.mesh import leaf_spec, set_leaf_spec
+    from horovod_tpu_torch.tree import tree_map
+
+    group = hvd.global_process_set.group
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    L = cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                        generator=gen, device="cuda")}
+               for _ in range(3)]
+
+    def trainer(p):
+        opt = _adamw(torch, dp, p)
+        return opt, dp.make_train_step(lambda q, b: tfm.loss_fn(q, b, flash),
+                                       opt, group)
+
+    def like(p):
+        """A fresh AdamW's like: the params stand in for the moments."""
+        return {"params": p, "opt": {"exp_avg": p, "exp_avg_sq": p,
+                                     "step": tree_map(lambda x: torch.zeros(
+                                         ()), p)}}
+
+    def snapshot(state):
+        return tree_map(lambda x: x.detach().clone(), state)
+
+    root = tempfile.mkdtemp(prefix="hvd-ckpt-")
+    n0 = _launches(fa)
+    try:
+        print(f"checkpoint: {shutil.disk_usage(root).free / 1e9:.1f} GB free "
+              f"at {root} before the phase")
+        with torch.enable_grad():
+            tp = _trainable(torch, params)
+            opt, step = trainer(tp)
+            step(tp, batches[0])
+            state = {"params": tp, "opt": ckpt.optimizer_state_tree(opt, tp)}
+            n_leaves = len(dp.tree_leaves(state))
+            size = sum(x.numel() * x.element_size()
+                       for x in dp.tree_leaves(state))
+            ref = snapshot(state)
+            s0 = ckpt.checkpoint_stats()
+            _, save_ms = _wall_ms(torch, lambda: ckpt.save(root, 1, state,
+                                                           async_=False))
+            s1 = ckpt.checkpoint_stats()
+            written = s1["bytes"] - s0["bytes"]
+            check(s1["commits"] - s0["commits"] == 1
+                  and ckpt.latest_step(root) == 1, "sync save did not commit")
+            print(f"checkpoint bert-large train state ({n_leaves} leaves, "
+                  f"{size / 1e9:.3f} GB: f32 params and AdamW moments) "
+                  f"({card}): sync save {save_ms:.1f} ms wall, "
+                  f"{written} bytes written ({written / save_ms / 1e6:.3f} "
+                  f"GB/s), snapshot_stall_ms {s1['snapshot_stall_ms']:.1f}, "
+                  f"write_ms {s1['write_ms']:.1f}")
+            loss1 = step(tp, batches[1]).item()        # uninterrupted step 1
+            after1 = [x.detach().clone() for x in dp.tree_leaves(tp)]
+
+            (out, at), restore_ms = _wall_ms(torch, lambda: ckpt.restore(
+                root, like(_trainable(torch, params))))
+            s2 = ckpt.checkpoint_stats()
+            read = s2["bytes_read"] - s1["bytes_read"]
+            eq, n, bad = _bit_equal(torch, dp, out, ref)
+            line = (f"checkpoint restore of step {at} ({card}): "
+                    f"{restore_ms:.1f} ms, {read} bytes read "
+                    f"({read / restore_ms / 1e6:.3f} GB/s), {eq}/{n} leaves "
+                    f"bit-equal to the snapshot (first unequal: {bad})")
+            check(at == 1 and eq == n, line)
+            print(line)
+            print(f"checkpoint host rates, GB/s over 1 GiB ({card}): "
+                  + ", ".join(f"{k} {v:.3f}"
+                              for k, v in _host_rates(torch, root).items()))
+            rp = out["params"]
+            ropt, rstep = trainer(rp)
+            ckpt.load_optimizer_state_tree(ropt, rp, out["opt"])
+            rloss1 = rstep(rp, batches[1]).item()
+            leaves = dp.tree_leaves(rp)
+            same = sum(torch.equal(a, b) for a, b in zip(leaves, after1))
+            before = dp.tree_leaves(ref["params"])
+            u_rel = max(((a - b0) - (b - b0)).norm().item()
+                        / max((b - b0).norm().item(), 1e-30)
+                        for a, b, b0 in zip(leaves, after1, before))
+            bit = rloss1 == loss1 and same == len(leaves)
+            line = (f"checkpoint resumed step 1 against the uninterrupted "
+                    f"step 1: loss {rloss1:.6f} vs {loss1:.6f}, {same}/"
+                    f"{len(leaves)} leaves bit-equal, worst update rel "
+                    f"{u_rel:.3g}: " + ("bit-equal held" if bit else
+                                        f"within TOL_HVD {TOL_HVD} held"))
+            check(bit or (abs(rloss1 - loss1) <= TOL_HVD["loss"]
+                          and u_rel <= TOL_HVD["update"]), line)
+            print(line)
+            del out, rp, ropt, rstep, leaves, after1, before, ref
+            shutil.rmtree(os.path.join(root, "1"))
+            torch.cuda.empty_cache()
+
+            # async: the step after save() updates the same tensors
+            state = {"params": tp, "opt": ckpt.optimizer_state_tree(opt, tp)}
+            ref = snapshot(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(root, 2, state, async_=True)
+            block_ms = (time.perf_counter() - t0) * 1e3
+            stall = ckpt.checkpoint_stats()["snapshot_stall_ms"]
+            step(tp, batches[2])
+            _, wait_ms = _wall_ms(torch, ckpt.wait)
+            s3 = ckpt.checkpoint_stats()
+            moved = sum(not torch.equal(a, b) for a, b in zip(
+                dp.tree_leaves(tp), dp.tree_leaves(ref["params"])))
+            (out, at), restore2_ms = _wall_ms(torch, lambda: ckpt.restore(
+                root, like(_trainable(torch, params))))
+            eq, n, bad = _bit_equal(torch, dp, out, ref)
+            line = (f"checkpoint async save ({card}): save() returned after "
+                    f"{block_ms:.1f} ms (snapshot_stall_ms {stall:.1f}) "
+                    f"against the sync save's {save_ms:.1f} ms wall; a step "
+                    f"then updated {moved} param leaves in place; wait "
+                    f"{wait_ms:.1f} ms, write_ms {s3['write_ms']:.1f}; "
+                    f"restore {restore2_ms:.1f} ms; {eq}/{n} leaves "
+                    f"bit-equal to the snapshot (first unequal: {bad})")
+            check(at == 2 and eq == n and moved > 0
+                  and s3["commits"] - s1["commits"] == 1, line)
+            print(line)
+            del out, ref, state, tp, opt, step
+            shutil.rmtree(os.path.join(root, "2"))
+            torch.cuda.empty_cache()
+
+        # shard_params-marked params over a one-rank model mesh
+        mesh = hvd.global_mesh({"model": 1})
+        sp = convert.shard_params(params, cfg, mesh)
+        _, ms = _wall_ms(torch, lambda: ckpt.save(root, 3, sp, mesh=mesh))
+        zeros = tree_map(lambda x: set_leaf_spec(torch.zeros_like(x),
+                                                 leaf_spec(x)), sp)
+        (out, at), rms = _wall_ms(torch, lambda: ckpt.restore(root, zeros,
+                                                              mesh=mesh))
+        eq, n, bad = _bit_equal(torch, dp, out, sp)
+        specs = sum(leaf_spec(a) == leaf_spec(b) for a, b in zip(
+            dp.tree_leaves(out), dp.tree_leaves(sp)))
+        line = (f"checkpoint shard_params over {mesh} ({card}): save "
+                f"{ms:.1f} ms, restore {rms:.1f} ms; {eq}/{n} leaves "
+                f"bit-equal, {specs}/{n} with their spec (first unequal: "
+                f"{bad})")
+        check(at == 3 and eq == n and specs == n, line)
+        print(line)
+        shutil.rmtree(os.path.join(root, "3"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n = tuple(b - a for a, b in zip(n0, _launches(fa)))
+    line = (f"checkpoint launches (flash_fwd, flash_bwd_dq, flash_bwd_dkv) "
+            f"over 4 steps: {n} (expected {(4 * L,) * 3})")
+    check(n == (4 * L,) * 3, line)
+    print(line)
+
+
 def b4_bound_ms(R, C, dtype_name, same, spec):
     """B4's least time: each distinct input read once (``same``: a and b
     are one tensor) and s, p written once in float32, over the memory
@@ -2332,6 +2573,7 @@ def main():
     faulthandler.dump_traceback_later(1100, exit=True)
     import horovod_tpu_torch.hvd as hvd
     from horovod_tpu_torch import _build, graft_entry
+    from horovod_tpu_torch import checkpoint as ckpt
     from horovod_tpu_torch import parallel as dp
     from horovod_tpu_torch.models import convert, resnet
     from horovod_tpu_torch.models import transformer as tfm
@@ -2445,6 +2687,9 @@ def main():
         pipe_ran, _ = run_path("pipeline", lambda: phase_pipeline(
             torch, tfm, dp, fa, hvd, params, cfg, card),
             ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+        ckpt_ran, _ = run_path("checkpoint", lambda: phase_checkpoint(
+            torch, tfm, dp, fa, ckpt, convert, hvd, params, cfg, card),
+            ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
         del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
@@ -2453,7 +2698,7 @@ def main():
     finally:
         hvd.shutdown()
     paths = (served, trained, hvd_ran, mesh_ran, moe_ran, pipe_ran,
-             resnet_ran)
+             ckpt_ran, resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}

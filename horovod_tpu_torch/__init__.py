@@ -32,6 +32,9 @@ Horovod API over process groups:
   loss averaged over a group or a mesh's data axes, Adasum,
   ``extra_reduce``, accumulation, buckets, wire-cast compression),
   ``shard_batch`` and ``replicate``;
+- :mod:`.checkpoint` — the sharded checkpoint in the JAX package's
+  ``hvd-sharded-v1`` format: per-rank shards, the two-barrier commit,
+  async snapshots, restore with reshard;
 - :mod:`.compression` — the fp16/bf16 compressors and wire-cast counters;
 - :mod:`.serving` — paged KV cache, kernel-free engine, scheduler and
   :class:`~.serving.loop.ServeLoop`;

@@ -104,6 +104,16 @@ def broadcast_parameters(params, root_rank=0, process_set=global_process_set):
     return params
 
 
+def checkpoint_stats():
+    """This process's checkpoint counters (``checkpoint.py``): saves,
+    commits and aborted commits; bytes written and read and the shard
+    files fetched; the last snapshot stall and write time in ms (the
+    async save's overlap); the last committed step."""
+    from . import checkpoint as _checkpoint
+
+    return _checkpoint.checkpoint_stats()
+
+
 class _DistributedOptimizer:
     """See :func:`DistributedOptimizer`. Every attribute it does not define
     (``zero_grad``, ``param_groups``, ``state``, ``state_dict``, ...) is

@@ -1,5 +1,6 @@
 """In-process Counter / Gauge / Histogram objects under the names
-``horovod_tpu/observability/metrics.py`` gives them.
+``horovod_tpu/observability/metrics.py`` gives them: the serve loop's,
+the pipeline's and the checkpoint's.
 
 Off unless ``HVD_METRICS=1`` (or :func:`enable`): a disabled metric does
 nothing, so the serve loop's instrumentation costs one flag check.
@@ -160,3 +161,39 @@ PIPELINE_ZB_FALLBACKS = {
         "hvd_pipeline_zb_fallbacks_total",
         f"ZB-H1 requests that fell back to plain 1F1B, reason={reason}")
     for reason in ZB_FALLBACK_REASONS}
+
+# The sharded checkpoint (checkpoint.py); counted per process, as
+# checkpoint.checkpoint_stats() is.
+CKPT_SAVES = counter(
+    "hvd_ckpt_saves",
+    "checkpoint.save() calls entered on this rank")
+CKPT_COMMITS = counter(
+    "hvd_ckpt_commits",
+    "Checkpoints durably committed (MANIFEST fsynced + staging dir "
+    "atomically renamed)")
+CKPT_ABORTED_COMMITS = counter(
+    "hvd_ckpt_aborted_commits",
+    "Saves that died before the rename (the previous checkpoint stays "
+    "latest)")
+CKPT_BYTES_WRITTEN = counter(
+    "hvd_ckpt_bytes_written",
+    "Shard bytes this rank wrote (its own blocks only)")
+CKPT_BYTES_READ = counter(
+    "hvd_ckpt_bytes_read",
+    "Shard-file bytes this rank fetched during restore")
+CKPT_FRAGMENTS = counter(
+    "hvd_ckpt_fragments",
+    "Shard files read during restore-with-reshard assembly")
+CKPT_RESTORES = counter(
+    "hvd_ckpt_restores",
+    "checkpoint.restore() calls that returned a tree")
+CKPT_SNAPSHOT_STALL_SECONDS = gauge(
+    "hvd_ckpt_snapshot_stall_seconds",
+    "Last device->host snapshot stall, the only step-blocking part of an "
+    "async save (span: ckpt.snapshot_stall)")
+CKPT_WRITE_SECONDS = gauge(
+    "hvd_ckpt_write_seconds",
+    "Last serialize+IO+commit time (overlapped with compute when async)")
+CKPT_LAST_COMMITTED_STEP = gauge(
+    "hvd_ckpt_last_committed_step",
+    "Step of the newest checkpoint this rank committed")

@@ -209,6 +209,12 @@ def leaf_spec(x):
     return getattr(x, "mesh_spec", ())
 
 
+def is_marked(x):
+    """Whether :func:`set_leaf_spec` recorded a spec on ``x``, one that
+    cuts nothing included."""
+    return hasattr(x, "mesh_spec")
+
+
 def cut_axes(x):
     """The mesh axes a leaf is cut over: it holds other values on each
     rank of them."""
