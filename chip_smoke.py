@@ -115,7 +115,23 @@ Phases (each prints its lines; any failure exits non-zero):
    against the async save's blocking time, ``write_ms``, restore ms and
    GB/s, and the free disk space first; B1-B3's launches over the four
    steps. Each step directory is deleted once checked;
-10. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+10. elastic: (a) the same train state in an ``elastic.TorchState`` under
+   ``elastic.run_fn``: step 1 and a commit; step 2 aborts the NCCL world
+   group after its forward, so its gradient reduction raises
+   ``HorovodInternalError``; restore, the reset (``distributed.teardown``
+   then ``hvd.init()`` and a first collective: a new world) and sync,
+   then step 2 again, every leaf held to an uninterrupted step 2
+   (bit-equal expected, else TOL_HVD); commit_ms, restore_ms, abort_ms,
+   reset_ms, sync_ms and the NCCL groups live before and after; (b) the
+   port's launcher with ``--min-np 1 --max-np 1`` over this file's
+   ``--elastic-worker`` mode at bert-large widths cut to
+   ELASTIC_B_LAYERS layers: a checkpoint at step 2 (reported to the
+   driver), a SIGKILL at step 3, the driver's respawn restoring the
+   published step and running to step 4, its params held to an
+   uninterrupted 4-step run in this process; rc 0, no worker left, this
+   process's HVD_* variables unchanged; the kill-to-first-step time.
+   The world after it is the reset's new one;
+11. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -123,7 +139,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-11. one JSON line of kernels, then the result line.
+12. one JSON line of kernels, then the result line.
 
 Every profile line opens its window through horovod_tpu_torch/profiler.py
 (``start``/``stop``; the trace goes to a temporary directory).
@@ -135,8 +151,9 @@ checks that two launches give the same bits, and times the kernel, the
 plain version and torch's own batch-norm reductions (yardsticks only).
 
 Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh),
-7 (MoE), 8 (the pipeline), 9 (the checkpoint) and 10 (ResNet training)
-are the main paths:
+7 (MoE), 8 (the pipeline), 9 (the checkpoint), 10 (elastic; B1-B3
+launches of this process only) and 11 (ResNet training) are the main
+paths:
 each starts with every kernel's launch count at 0 and must launch the
 kernels it runs, every bf16 launch of B1, B2 and B3 on its TMA/wgmma
 kernel. The card has one
@@ -2296,6 +2313,363 @@ def phase_checkpoint(torch, tfm, dp, fa, ckpt, convert, hvd, params, cfg,
     print(line)
 
 
+# The elastic phase's part (b): bert-large widths, depth cut to this many
+# layers for the phase's time (two worker processes and the smoke's own
+# uninterrupted run each build the model and take its steps).
+ELASTIC_B_LAYERS = 4
+ELASTIC_B_STEPS = 4
+
+
+class _TimedState:
+    """Mixed into elastic.TorchState: records each save, restore and sync
+    in ``times`` (ms; the restore and the save synchronise the card)."""
+
+    def _timed(self, name, fn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.times.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def commit(self):
+        return self._timed("commit", super().commit)
+
+    def restore(self):
+        return self._timed("restore", super().restore)
+
+    def sync(self):
+        return self._timed("sync", super().sync)
+
+
+def phase_elastic_inproc(torch, tfm, dp, fa, ckpt, hvd, params, cfg, card):
+    """(a) bert-large's train state (f32 params and AdamW moments, B=8
+    S=512 bf16 flash through make_train_step over ``hvd.init()``'s NCCL
+    world) in an ``elastic.TorchState`` under ``elastic.run_fn``: step 1
+    and a commit; then every tensor of the working state (params, AdamW's
+    moments and step counts) gets an in-place ``add_(1)``, so that the
+    restore has every leaf to undo; step 2 aborts the world's NCCL group
+    after its forward, so its gradient reduction raises
+    ``HorovodInternalError`` through torch_ops; the state is restored
+    (every leaf held bit-equal to a copy on the card taken at the
+    commit, before the reset runs), the reset tears the world down
+    (``distributed.teardown``) and builds a new one (``hvd.init()`` and a
+    first collective), the state syncs, and step 2 runs again. Every leaf
+    after it is held to an uninterrupted step 2 from the same start:
+    bit-equal expected, else within TOL_HVD (the line says which held).
+    Prints commit_ms (card to pinned host), restore_ms, abort_ms,
+    reset_ms, sync_ms and the NCCL groups live before and after."""
+    from horovod_tpu_torch import distributed, elastic
+
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    L = cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                        generator=gen, device="cuda")}
+               for _ in range(2)]
+    n0 = _launches(fa)
+    with torch.enable_grad():
+        ref = _trainable(torch, params)
+        step = dp.make_train_step(lambda q, b: tfm.loss_fn(q, b, flash),
+                                  _adamw(torch, dp, ref),
+                                  hvd.global_process_set.group)
+        for b in batches:
+            step(ref, b)
+        start = dp.tree_leaves(_trainable(torch, params))
+        want = [x.detach().clone() for x in dp.tree_leaves(ref)]
+        del ref, step
+        torch.cuda.empty_cache()
+
+        tp = _trainable(torch, params)
+        opt = _adamw(torch, dp, tp)
+        state = type("TimedTorchState", (_TimedState, elastic.TorchState),
+                     {"times": {}})(params=tp, step=0)
+        ev = {"faults": 0}
+
+        def loss(q, b):
+            out = tfm.loss_fn(q, b, flash)
+            if state.step == 1 and not ev["faults"]:
+                # the fault: the world's communicator dies mid-step
+                ev["faults"] += 1
+                ev["live_before"] = distributed.world().live_nccl_groups
+                t0 = time.perf_counter()
+                distributed.world().abort()
+                ev["abort_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def leaves():
+            return dp.tree_leaves(tp) + dp.tree_leaves(state.opt)
+
+        def reset():
+            # run_fn restored the state just before: it must be the
+            # commit of step 1 again, in every leaf
+            committed = ev.pop("committed", None)
+            if committed is not None:
+                ev["restored"] = sum(torch.equal(a, b) for a, b in
+                                     zip(leaves(), committed))
+                del committed
+            t0 = time.perf_counter()
+            distributed.teardown()
+            hvd.init()
+            hvd.barrier()                  # the first collective
+            torch.cuda.synchronize()
+            ev["reset_ms"] = (time.perf_counter() - t0) * 1e3
+            ev["live_after"] = (old_world.live_nccl_groups,
+                                distributed.world().live_nccl_groups)
+            ev.setdefault("resets", 0)
+            ev["resets"] += 1
+
+        def train(state):
+            step = dp.make_train_step(loss, opt,
+                                      hvd.global_process_set.group)
+            while state.step < 2:
+                try:
+                    step(tp, batches[state.step])
+                except hvd.HorovodInternalError as e:
+                    ev["error"] = str(e).splitlines()[0][:120]
+                    raise
+                if state.step == 0:     # AdamW's moments exist now
+                    state.opt = ckpt.optimizer_state_tree(opt, tp)
+                state.step += 1
+                state.commit()
+                if state.step == 1 and not ev["faults"]:
+                    # the working state moves away from the commit, as a
+                    # half-applied step would move it
+                    ev["committed"] = [x.clone() for x in leaves()]
+                    with torch.no_grad():
+                        for x in leaves():
+                            x.add_(1)
+                    ev["dirty"] = sum(not torch.equal(a, b) for a, b in
+                                      zip(leaves(), ev["committed"]))
+            return state.step
+
+        old_world = distributed.world()
+        steps = elastic.run_fn(train, reset)(state)
+        check(steps == 2 and ev.get("resets") == 1
+              and distributed.world() is not old_world,
+              f"elastic: steps {steps}, resets {ev.get('resets')}, the "
+              f"world {'was' if distributed.world() is not old_world else 'was not'} "
+              f"rebuilt")
+        got = dp.tree_leaves(tp)
+        same = sum(torch.equal(a, b) for a, b in zip(got, want))
+        worst = max((a - b).abs().max().item() for a, b in zip(got, want))
+        u_rel = max(((a - b).norm() / max((b - s).norm().item(), 1e-30))
+                    .item() for a, b, s in zip(got, want, start))
+        t = state.times
+        print(f"elastic (a) bert-large train state in a TorchState "
+              f"({sum(x.numel() * x.element_size() for x in state._host) / 1e9:.3f} GB "
+              f"committed, {len(state._host)} tensors) ({card}): "
+              f"commit_ms after step 1 {t['commit'][0]:.1f} (new pinned "
+              f"buffers for the moments), after the redone step 2 "
+              f"{t['commit'][-1]:.1f} (buffers reused); restore_ms "
+              f"{t['restore'][0]:.1f}; abort_ms {ev['abort_ms']:.1f}; "
+              f"reset_ms {ev['reset_ms']:.1f} (teardown, hvd.init(), first "
+              f"collective); sync_ms {t['sync'][-1]:.1f} (its own save "
+              f"included; the first sync, before step 1, "
+              f"{t['sync'][0]:.1f}); NCCL groups live: the world's "
+              f"{ev['live_before']} before the abort; after the reset the "
+              f"old world's {ev['live_after'][0]}, the new world's "
+              f"{ev['live_after'][1]}; the "
+              f"failed reduction raised HorovodInternalError: "
+              f"{ev['error']!r}")
+        n_state = len(leaves())
+        line = (f"elastic (a) restore: {ev['dirty']}/{n_state} working "
+                f"leaves moved off the step-1 commit before the fault, "
+                f"{ev['restored']}/{n_state} bit-equal to it after "
+                f"restore()")
+        check(ev["dirty"] == n_state and ev["restored"] == n_state, line)
+        print(line)
+        bit = same == len(want)
+        line = (f"elastic (a) redone step 2 against the uninterrupted step "
+                f"2 ({card}): {same}/{len(want)} leaves bit-equal, max "
+                f"|diff| {worst:.3g}, worst update rel {u_rel:.3g}: "
+                + ("bit-equal held" if bit
+                   else f"within TOL_HVD {TOL_HVD} held"))
+        check(bit or u_rel <= TOL_HVD["update"], line)
+        check(ev["live_before"] >= 1 and ev["live_after"][0] == 0
+              and ev["live_after"][1] == 1 and "aborted" in ev["error"],
+              line)
+        print(line)
+        del state, tp, opt, want, start, got
+        torch.cuda.empty_cache()
+    n = tuple(b - a for a, b in zip(n0, _launches(fa)))
+    line = (f"elastic (a) launches (flash_fwd, flash_bwd_dq, flash_bwd_dkv) "
+            f"over 5 steps (2 uninterrupted, step 1, the failed step 2, "
+            f"the redone step 2): {n} (expected {(5 * L,) * 3})")
+    check(n == (5 * L,) * 3, line)
+    print(line)
+
+
+def _elastic_b_model(torch, tfm, dp):
+    """(cfg, trainable params, batches) of part (b), the same in every
+    process: bert-large widths at ELASTIC_B_LAYERS layers, flash, params
+    and batches from seeds."""
+    cfg = dataclasses.replace(tfm.bert_large(), n_layers=ELASTIC_B_LAYERS,
+                              attn_impl="flash")
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                        generator=gen, device="cuda")}
+               for _ in range(ELASTIC_B_STEPS)]
+    return cfg, _trainable(torch, params), batches
+
+
+def elastic_worker(root):
+    """A worker of part (b), launched by the port's launcher as
+    ``chip_smoke.py --elastic-worker <root>``: steps 1..4 of the cut
+    model, a checkpoint of the train state after step 2, a SIGKILL of
+    itself before step 3 (once: a marker file), and, respawned, a restore
+    of the step the driver published (``elastic.restore_from_checkpoint``)
+    and steps 3 and 4; the params after step 4 go to ``<root>/final.pt``."""
+    t_start = time.time()
+    import signal
+
+    import torch
+
+    import horovod_tpu_torch.hvd as hvd
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch import parallel as dp
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.tree import tree_map
+
+    with open(os.path.join(root, "pids"), "a") as f:
+        f.write(f"{os.getpid()}\n")
+
+    def log(line):
+        with open(os.path.join(root, "log"), "a") as f:
+            f.write(line + "\n")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    cfg, tp, batches = _elastic_b_model(torch, tfm, dp)
+    opt = _adamw(torch, dp, tp)
+    step = dp.make_train_step(lambda q, b: tfm.loss_fn(q, b, cfg), opt,
+                              hvd.global_process_set.group)
+    like = {"params": tp, "opt": {"exp_avg": tp, "exp_avg_sq": tp,
+                                  "step": tree_map(lambda x: torch.zeros(()),
+                                                   tp)}}
+    t0 = time.perf_counter()
+    out, at = elastic.restore_from_checkpoint(like,
+                                              os.path.join(root, "ckpt"))
+    first = 0
+    if at is not None:
+        for a, b in zip(dp.tree_leaves(tp), dp.tree_leaves(out["params"])):
+            a.detach().copy_(b)
+        ckpt.load_optimizer_state_tree(opt, tp, out["opt"])
+        torch.cuda.synchronize()
+        first = int(at)
+        how = ("assignment" if os.environ.get("HVD_CKPT_STEP")
+               else "driver stats")
+        log(f"restored step={at} from={how} "
+            f"restore_ms={(time.perf_counter() - t0) * 1e3:.1f}")
+        del out
+    marker = os.path.join(root, "marker")
+    with torch.enable_grad():
+        for i in range(first, ELASTIC_B_STEPS):
+            if i == 2 and not os.path.exists(marker):
+                with open(marker, "w") as f:
+                    f.write(f"{time.time()}")
+                os.kill(os.getpid(), signal.SIGKILL)
+            step(tp, batches[i])
+            if i == first:
+                torch.cuda.synchronize()
+                log(f"first step={i + 1} at={time.time()} "
+                    f"since_start={time.time() - t_start:.3f}")
+            if i == 1:
+                ckpt.save(os.path.join(root, "ckpt"), 2,
+                          {"params": tp,
+                           "opt": ckpt.optimizer_state_tree(opt, tp)})
+    torch.save([x.detach().cpu() for x in dp.tree_leaves(tp)],
+               os.path.join(root, "final.pt"))
+    log(f"final steps={ELASTIC_B_STEPS}")
+    hvd.shutdown()
+
+
+def phase_elastic_launcher(torch, tfm, dp, fa, hvd, card):
+    """(b) the port's launcher, ``python -m horovod_tpu_torch.runner.launch
+    --min-np 1 --max-np 1 --host-discovery-script "echo localhost:1"``,
+    over ``elastic_worker`` (bert-large widths, ELASTIC_B_LAYERS layers:
+    a cut for the phase's time): the worker saves at step 2 (the commit
+    reaches the driver), SIGKILLs itself at step 3; the driver respawns
+    it; the new process restores the driver-published step and runs to
+    step 4. Its params are held to an uninterrupted 4-step run in this
+    process (bit-equal expected, else within TOL_HVD). The job's rc must
+    be 0, no worker may outlive it, and this process's HVD_* variables
+    must be as they were. Prints the respawn-to-first-step time."""
+    from horovod_tpu_torch import graft_entry
+
+    hvd_env = {k: v for k, v in os.environ.items() if k.startswith("HVD_")}
+    root = tempfile.mkdtemp(prefix="hvd-elastic-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "--min-np", "1", "--max-np", "1",
+           "--host-discovery-script", "echo localhost:1", "--verbose",
+           sys.executable, os.path.abspath(__file__), "--elastic-worker",
+           root]
+    try:
+        t0 = time.perf_counter()
+        rc, out = graft_entry._run_job(cmd, env, 300,
+                                       os.path.join(root, "pids"))
+        job_s = time.perf_counter() - t0
+        with open(os.path.join(root, "log")) as f:
+            lines = f.read().splitlines()
+        driver = [ln for ln in out.splitlines() if "elastic-driver" in ln]
+        check(rc == 0, f"elastic (b): the job exited {rc}:\n{out[-3000:]}")
+        restored = [ln for ln in lines if ln.startswith("restored")]
+        firsts = [ln for ln in lines if ln.startswith("first")]
+        check(len(restored) == 1 and "step=2 " in restored[0]
+              and len(firsts) == 2 and "FAILED rc=-9" in out
+              and lines[-1] == f"final steps={ELASTIC_B_STEPS}",
+              f"elastic (b): {lines}\n{out[-3000:]}")
+        with open(os.path.join(root, "marker")) as f:
+            killed_at = float(f.read())
+        respawned_first = float(firsts[1].split("at=")[1].split()[0])
+        got = torch.load(os.path.join(root, "final.pt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check({k: v for k, v in os.environ.items() if k.startswith("HVD_")}
+          == hvd_env, "elastic (b) left HVD_* variables changed")
+    n0 = _launches(fa)
+    cfg, tp, batches = _elastic_b_model(torch, tfm, dp)
+    start = [x.detach().clone() for x in dp.tree_leaves(tp)]
+    step = dp.make_train_step(lambda q, b: tfm.loss_fn(q, b, cfg),
+                              _adamw(torch, dp, tp),
+                              hvd.global_process_set.group)
+    with torch.enable_grad():
+        for b in batches:
+            step(tp, b)
+    want = [x.detach().cpu() for x in dp.tree_leaves(tp)]
+    n = tuple(b - a for a, b in zip(n0, _launches(fa)))
+    same = sum(torch.equal(a, b) for a, b in zip(got, want))
+    worst = max((a - b).abs().max().item() for a, b in zip(got, want))
+    u_rel = max(((a - b).norm() / max((b - s.cpu()).norm().item(), 1e-30))
+                .item() for a, b, s in zip(got, want, start))
+    bit = same == len(want)
+    print(f"elastic (b) launcher job ({card}): rc {rc} in {job_s:.1f} s; "
+          f"driver: {' | '.join(d.split('] ', 1)[-1] for d in driver)}; "
+          f"worker: {' | '.join(lines)}")
+    line = (f"elastic (b) respawned worker against an uninterrupted "
+            f"{ELASTIC_B_STEPS}-step run (bert-large widths, "
+            f"{ELASTIC_B_LAYERS} layers) ({card}): kill to the respawned "
+            f"worker's first step {respawned_first - killed_at:.2f} s "
+            f"(its own start to first step "
+            f"{firsts[1].split('since_start=')[1]} s); {same}/{len(want)} "
+            f"leaves bit-equal, max |diff| {worst:.3g}, worst update rel "
+            f"{u_rel:.3g}: " + ("bit-equal held" if bit
+                                else f"within TOL_HVD {TOL_HVD} held"))
+    check(bit or u_rel <= TOL_HVD["update"], line)
+    check(n == (ELASTIC_B_STEPS * ELASTIC_B_LAYERS,) * 3,
+          f"elastic (b) launches in this process {n}")
+    print(line)
+
+
 def b4_bound_ms(R, C, dtype_name, same, spec):
     """B4's least time: each distinct input read once (``same``: a and b
     are one tensor) and s, p written once in float32, over the memory
@@ -2690,6 +3064,16 @@ def main():
         ckpt_ran, _ = run_path("checkpoint", lambda: phase_checkpoint(
             torch, tfm, dp, fa, ckpt, convert, hvd, params, cfg, card),
             ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+
+        def elastic_phase():
+            phase_elastic_inproc(torch, tfm, dp, fa, ckpt, hvd, params, cfg,
+                                 card)
+            phase_elastic_launcher(torch, tfm, dp, fa, hvd, card)
+
+        elastic_ran, _ = run_path("elastic", elastic_phase,
+                                  ["flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"])
+        group = hvd.global_process_set.group   # the reset's new world
         del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
@@ -2698,7 +3082,7 @@ def main():
     finally:
         hvd.shutdown()
     paths = (served, trained, hvd_ran, mesh_ran, moe_ran, pipe_ran,
-             ckpt_ran, resnet_ran)
+             ckpt_ran, elastic_ran, resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}
@@ -2731,4 +3115,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        elastic_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

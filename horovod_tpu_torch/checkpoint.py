@@ -36,7 +36,9 @@ training thread runs its collectives on that group, and two threads
 interleaving calls on one NCCL communicator can hang. ``<n>`` counts the
 set's saves, so a re-save of a step never meets an old key. A member
 missing for the world's timeout (``HVD_JAX_COORD_TIMEOUT`` seconds by
-default) raises ``HorovodInternalError``.
+default) raises ``HorovodInternalError``; in an elastic job so does a
+newer epoch from the driver, as soon as the rank sees it. The root
+reports each commit to the elastic driver (``_report_commit``).
 
 Async: ``save(..., async_=True)`` copies this rank's blocks to the host
 (CUDA tensors into pinned buffers, synchronised; CPU tensors and numpy
@@ -61,8 +63,7 @@ into a ``bfloat16`` buffer, which numpy refuses.)
 
 Kept deviations: the legacy orbax read path is not ported (a step with
 only ``_METADATA`` counts as committed, but restoring it raises
-``CheckpointError``); ``_report_commit`` does nothing until the elastic
-worker is ported. Counters (:func:`checkpoint_stats`) are per process, as
+``CheckpointError``). Counters (:func:`checkpoint_stats`) are per process, as
 in the reference: ranks that are threads of one process add to the same
 counters.
 """
@@ -442,13 +443,37 @@ def _merge_and_commit(directory, staging, final, step, members):
     _fsync_dir(directory)
 
 
+# Seconds between an elastic worker's looks at the driver's epoch while
+# it waits on a checkpoint key.
+_EPOCH_POLL_S = 0.5
+
+
 def _wait_key(store, key, what, timeout):
-    try:
-        store.wait([key], datetime.timedelta(seconds=timeout))
-    except RuntimeError as e:     # the store's timeout
-        raise HorovodInternalError(
-            f"checkpoint {what}: a member did not arrive within "
-            f"{timeout} s ({e})") from e
+    """Wait for ``key``, at most ``timeout`` seconds. In an elastic job it
+    also gives up, at once, when the driver has published a newer epoch:
+    a member died, and no key it owed will come (a writer killed before
+    the shards barrier would hold the survivors the whole timeout)."""
+    from .runner.elastic import worker as _worker
+
+    elastic = _worker.is_elastic()
+    deadline = time.monotonic() + timeout
+    while True:
+        left = deadline - time.monotonic()
+        wait = min(left, _EPOCH_POLL_S) if elastic else left
+        try:
+            store.wait([key], datetime.timedelta(seconds=max(wait, 0.001)))
+            return
+        except RuntimeError as e:     # the store's timeout
+            if elastic and _worker.notification_manager.newer_epoch():
+                raise HorovodInternalError(
+                    f"checkpoint {what}: the elastic driver published "
+                    f"epoch {_worker.notification_manager.latest} while "
+                    f"this rank waited in epoch "
+                    f"{_worker.notification_manager.epoch}") from e
+            if wait >= left:
+                raise HorovodInternalError(
+                    f"checkpoint {what}: a member did not arrive within "
+                    f"{timeout} s ({e})") from e
 
 
 def _barrier(store, key, n, timeout):
@@ -515,8 +540,14 @@ def _write_and_commit(directory, step, tensors, shards, world, root,
 
 
 def _report_commit(step):
-    """The reference tells the elastic driver the last committed step
-    here; the port has no elastic worker yet."""
+    """Tell the elastic driver the last committed step (the set root
+    calls this after each commit): it rides every later epoch's
+    assignments, so a promoted spare or a respawned rank restores it
+    without a collective (``elastic.restore_from_checkpoint``)."""
+    from .runner.elastic import worker as _worker
+
+    if _worker.is_elastic():
+        _worker.report_ckpt_commit(step)
 
 
 def save(directory, step, tree, process_set=global_process_set,

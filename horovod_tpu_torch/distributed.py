@@ -12,9 +12,15 @@ card, gloo on the CPU when the caller asks for it. Every other group
 (mesh axes, process sets) is made from the same store
 (:class:`~.parallel.mesh.World`).
 
-The elastic client mode (``HVD_JAX_COORD_MODE=client``, a coordination
-service hosted by the elastic driver) comes with the port of
-``elastic.py`` (ROADMAP Queue A item 12).
+Elastic jobs (``HVD_ELASTIC=1``, workers the elastic driver spawned):
+:func:`init` goes through ``runner.elastic.worker.rendezvous_init``,
+which applies the driver's epoch assignment to the environment and then
+builds the world (:func:`init_world`). The driver hosts each epoch's
+``TCPStore`` and every rank, rank 0 too, joins it as a client
+(``HVD_JAX_COORD_MODE=client``, the reference's client mode), so a
+rank's death does not take the meeting point with it. A reset calls
+:func:`teardown`, which aborts the world's NCCL groups, and builds a new
+world for the next epoch on the device :func:`init` was given.
 """
 
 import datetime
@@ -73,6 +79,8 @@ class _Job:
 
 
 _job = None
+# The device init() was given: a reset builds the next world on it.
+_device = None
 
 
 def _env(name, default):
@@ -84,17 +92,35 @@ def init(device=None):
     ``HVD_LOCAL_SIZE``, ``HVD_CROSS_RANK``, ``HVD_CROSS_SIZE`` (with the
     C++ core's defaults: rank 0 of 1, local = global, cross 0 of 1) and
     ``HVD_JAX_COORD_ADDR``, the ``host:port`` of the ``TCPStore`` that
-    rank 0 hosts; a job of one rank without an address meets in a
-    ``HashStore``. ``HVD_JAX_COORD_TIMEOUT`` (seconds, default 120)
-    bounds every wait: the store's and each process group's.
+    rank 0 hosts (or, under ``HVD_JAX_COORD_MODE=client``, that the
+    elastic driver hosts); a job of one rank without an address meets in
+    a ``HashStore``. ``HVD_JAX_COORD_TIMEOUT`` (seconds, default 120)
+    bounds every wait: the store's and each process group's. Under
+    ``HVD_ELASTIC=1`` the ranks come from the elastic driver's epoch
+    (``runner.elastic.worker.rendezvous_init``).
 
     ``device=None`` means the CUDA card ``HVD_LOCAL_RANK`` (made current)
     and NCCL; it raises where there is no card. ``device="cpu"`` means
-    gloo. Idempotent."""
-    global _job
+    gloo. The device is remembered: an elastic reset builds the next
+    world on it. Idempotent."""
+    global _device
     if _job is not None:
         return
-    device = resolve_device(device)
+    resolve_device(device)       # no card: raise before any rendezvous
+    _device = device
+    from .runner.elastic import worker
+
+    if worker.is_elastic():
+        worker.rendezvous_init()
+    else:
+        init_world()
+
+
+def init_world():
+    """Build this process's world from the environment, on the device
+    :func:`init` was given (see there)."""
+    global _job
+    device = resolve_device(_device)
     rank, size = _env("HVD_RANK", 0), _env("HVD_SIZE", 1)
     local_rank = _env("HVD_LOCAL_RANK", rank)
     local_size = _env("HVD_LOCAL_SIZE", size)
@@ -110,8 +136,12 @@ def init(device=None):
                 f"HVD_JAX_COORD_ADDR={addr!r} is not host:port (a "
                 f"multi-host launch that negotiates its addresses is not "
                 f"ported yet)")
-        store = dist.TCPStore(host, int(port), size, rank == 0,
-                              timeout=datetime.timedelta(seconds=timeout))
+        wait = datetime.timedelta(seconds=timeout)
+        if os.environ.get("HVD_JAX_COORD_MODE") == "client":
+            store = dist.TCPStore(host, int(port), None, False, timeout=wait)
+        else:
+            store = dist.TCPStore(host, int(port), size, rank == 0,
+                                  timeout=wait)
     elif size == 1:
         store = dist.HashStore()
     else:
@@ -126,11 +156,25 @@ def init(device=None):
 
 def shutdown():
     """Leave the job; symmetric with :func:`init`."""
+    _leave(abort=False)
+
+
+def teardown():
+    """The reset's half of the NCCL-communicator rebuild (the counterpart
+    of ``jax/distributed.py:182``): abort the world's NCCL groups, where
+    :func:`shutdown` shuts them down gracefully and can wait on a
+    collective whose peer is dead; drop every subgroup, every ``Mesh``
+    and every process-set binding built on the world. The next
+    :func:`init_world` builds a new world. No-op before :func:`init`."""
+    _leave(abort=True)
+
+
+def _leave(abort):
     global _job
     if _job is None:
         return
     global_process_set.unbind()
-    _job.world.close()
+    _job.world.close(abort=abort)
     _job = None
 
 

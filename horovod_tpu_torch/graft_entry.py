@@ -5,12 +5,20 @@
 - :func:`dryrun_multichip` — the dp×sp×tp×ep MoE-transformer train step
   and the ragged expert dispatch over ``n`` ranks, the pipeline
   exercises (gpipe forward, every schedule's gradients, pp×dp×tp×ep on
-  16 ranks), and the prefix-cached serve loop, as far as the port
-  reaches (ROADMAP Queue A items 10 and 13).
+  16 ranks), an elastic epoch transition and the prefix-cached serve
+  loop, as far as the port reaches (ROADMAP Queue A items 10, 12 and
+  13). Hot-spare promotion through the launcher
+  (:func:`_spare_promotion_exercise`) spawns a job, and runs in
+  ``tests/test_torch_elastic_job.py``.
 """
 
 import dataclasses
 import datetime
+import os
+import signal
+import subprocess
+import sys
+import tempfile
 import threading
 import time
 
@@ -341,6 +349,153 @@ def _serve_prefix_exercise(device):
     return sl.batcher.prefix_hit_ratio()
 
 
+def _elastic_epoch_exercise():
+    """One elastic epoch transition (``__graft_entry__.py:219``) on a
+    one-rank gloo world: the wrapped train fn commits a ``TorchState``,
+    raises ``HostsUpdatedInterrupt`` once, runs the reset (teardown: the
+    world's groups aborted and dropped; then ``init``, a new world),
+    syncs, and finishes the second epoch with the state intact. Returns
+    (epochs, the state's total, resets)."""
+    from . import distributed, elastic, hvd
+
+    hvd.init(device="cpu")
+    state = elastic.TorchState(total=torch.zeros(2), epoch=0)
+    resets = []
+
+    def reset():
+        distributed.teardown()
+        hvd.init(device="cpu")
+        resets.append(1)
+
+    def train_fn(state):
+        while state.epoch < 2:
+            out = hvd.allreduce(torch.ones(2), op=hvd.Sum)
+            state.total.add_(out)
+            state.epoch += 1
+            state.commit()
+            if state.epoch == 1 and not resets:
+                raise elastic.HostsUpdatedInterrupt()
+        return state.epoch
+
+    try:
+        epochs = elastic.run_fn(train_fn, reset)(state)
+    finally:
+        hvd.shutdown()
+    total = state.total.tolist()
+    assert epochs == 2 and resets, (epochs, resets)
+    assert total == [2.0, 2.0], total
+    return epochs, total, len(resets)
+
+
+def _run_job(cmd, env, timeout, pids):
+    """Run a launcher command in a session of its own; returns (rc,
+    output). Past ``timeout`` seconds the launcher gets SIGTERM (it
+    terminates its workers, each in a session of its own) and then its
+    session SIGKILL, and the call raises. Every pid the workers wrote
+    to the file ``pids`` must be gone after: one still running is
+    killed and the call raises."""
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+        late = None
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+        late = f"job did not finish in {timeout} s"
+    left = []
+    if os.path.exists(pids):
+        with open(pids) as f:
+            for pid in {int(x) for x in f.read().split()}:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                    left.append(pid)
+                except ProcessLookupError:
+                    pass
+    problems = ([late] if late else []) + (
+        [f"workers outlived the job: {left}"] if left else [])
+    if problems:
+        raise AssertionError("; ".join(problems) + "\n" + out[-4000:])
+    return proc.returncode, out
+
+
+def _spare_promotion_exercise(timeout=90):
+    """Hot-spare promotion (``__graft_entry__.py:564``): a 2-rank elastic
+    job with one parked spare through the port's launcher, on the CPU;
+    the slot-1 worker SIGKILLs itself mid-run, the driver promotes the
+    spare into the freed rank (an incremental epoch: the survivor keeps
+    its rank), and both finishers pass a parity allreduce. Asserts the
+    driver logged the promotion; returns the finishers' lines."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory(prefix="hvd_dryrun_spare_") as td:
+        hosts = os.path.join(td, "hosts.txt")
+        with open(hosts, "w") as f:
+            f.write("localhost:3\n")  # 2 ranks + 1 spare slot
+        log = os.path.join(td, "final.log")
+        pids = os.path.join(td, "pids")
+        env = dict(os.environ)
+        env.update({"PYTHONPATH": root, "TEST_LOG": log, "TEST_PIDS": pids,
+                    "TEST_MARKER": os.path.join(td, "victim.marker"),
+                    "HVD_PEER_TIMEOUT_MS": "1500"})
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "--min-np", "2", "--max-np", "2", "--hot-spares", "1",
+               "--host-discovery-script", f"cat {hosts}",
+               "--blacklist-cooldown-range", "2", "5", "--verbose",
+               sys.executable, "-c",
+               "from horovod_tpu_torch.graft_entry import _spare_child; "
+               "_spare_child()"]
+        rc, out = _run_job(cmd, env, timeout, pids)
+        assert rc == 0, out[-3000:]
+        assert "promoted" in out, f"no spare promotion logged\n{out[-3000:]}"
+        with open(log) as f:
+            finals = [ln for ln in f.read().splitlines()
+                      if ln.startswith("final")]
+    assert len(finals) == 2 and all("parity=ok" in ln for ln in finals), \
+        (finals, out[-2000:])
+    return finals
+
+
+def _spare_child():
+    """A worker of :func:`_spare_promotion_exercise`
+    (``__graft_entry__.py:603``)."""
+    from . import elastic, hvd
+
+    with open(os.environ["TEST_PIDS"], "a") as f:
+        f.write(f"{os.getpid()}\n")
+    torch.set_num_threads(1)
+    hvd.init(device="cpu")
+    marker = os.environ["TEST_MARKER"]
+    wid = os.environ.get("HVD_WORKER_ID", "?")
+    state = elastic.ObjectState(iteration=0)
+
+    @elastic.run
+    def train(state):
+        while state.iteration < 6:
+            if (state.iteration == 2 and not os.path.exists(marker)
+                    and wid.startswith("localhost-1-")):
+                with open(marker, "w") as f:
+                    f.write(wid)
+                os.kill(os.getpid(), signal.SIGKILL)
+            hvd.allreduce(torch.ones(2), op=hvd.Sum)
+            state.iteration += 1
+            state.commit()
+            time.sleep(0.1)
+        return hvd.rank(), hvd.size()
+
+    rank, size = train(state)
+    check = hvd.allreduce(torch.ones(2), op=hvd.Sum)
+    parity = "ok" if torch.equal(check, torch.full((2,), float(size))) \
+        else "BAD"
+    with open(os.environ["TEST_LOG"], "a") as f:
+        f.write(f"final rank={rank} size={size} parity={parity}\n")
+    hvd.shutdown()
+
+
 # Seconds the threads are joined past their groups' timeout: a rank's
 # wait raises at that timeout, counted from when the wait began.
 _JOIN_GRACE = 5.0
@@ -389,15 +544,20 @@ def dryrun_multichip(n_devices):
     expert dispatch on it, then the pipeline exercises (a gpipe forward
     over min(4, n) ranks, the four schedules' gradients against each
     other and their bubble orderings, and the composed pp×dp×tp×ep step
-    on 16 ranks), then the prefix-cached serve loop, and print one line
-    naming what ran. The ranks are threads of this process, each with a
-    gloo ``World`` on the CPU, which the reference's dry run forces too
-    (``force_cpu_platform``).
+    on 16 ranks), then an elastic epoch transition in this process
+    (:func:`_elastic_epoch_exercise`), then the prefix-cached serve
+    loop, and print one line naming what ran. The ranks are threads of
+    this process, each with a gloo ``World`` on the CPU, which the
+    reference's dry run forces too (``force_cpu_platform``). The
+    reference runs hot-spare promotion here too; the port's
+    :func:`_spare_promotion_exercise` spawns a 3-process job through its
+    launcher (about 12 s), so it runs in
+    ``tests/test_torch_elastic_job.py`` instead, and the line says so.
 
     The reference's other exercises wait for the modules they drive
     (ROADMAP Queue A): core bridge, hierarchical, autotune, bucket,
-    zerocopy, cache and join (item 16); elastic and spare promotion
-    (item 12); the TF-XLA step has no counterpart."""
+    zerocopy, cache and join (item 16); the TF-XLA step has no
+    counterpart."""
     n = int(n_devices)
     data, seq, model = _mesh_shape(n)
 
@@ -413,11 +573,13 @@ def dryrun_multichip(n_devices):
     _pipeline_exercise(n)
     _pipeline_schedule_exercise(n)
     _composed_16dev_exercise()
+    _elastic_epoch_exercise()
     hit_ratio = _serve_prefix_exercise("cpu")
     print(f"dryrun_multichip({n}): mesh=({data},{seq},{model}) "
           f"loss={loss:.4f} ragged-moe ok, pipeline ok, "
           f"pipeline-schedules ok (gpipe/1f1b/interleaved/zb grad-parity, "
           f"bubble orderings hold), "
           f"composed-16dev ok (pp x dp x tp x ep grad parity), "
+          f"elastic ok, spare-promotion in test_torch_elastic_job.py, "
           f"serve-prefix ok (warm hit ratio {hit_ratio:.2f}) — OK",
           flush=True)

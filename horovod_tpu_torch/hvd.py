@@ -73,6 +73,7 @@ from .process_sets import (  # noqa: F401
 )
 from .parallel.mesh import cut_axes
 from .tree import tree_leaves
+from . import elastic  # noqa: F401,E402  (hvd.elastic.run, TorchState)
 
 
 def _refuse_cut(tensors, what):
@@ -92,15 +93,19 @@ def broadcast_parameters(params, root_rank=0, process_set=global_process_set):
     optimizer built over the tensors keeps them; returns ``params``. Takes
     a tree of tensors (the port's params, a ``state_dict()``) or an
     iterable of them or of ``(name, tensor)`` pairs
-    (``named_parameters()``). A leaf cut over mesh axes (``shard_params``)
-    raises."""
+    (``named_parameters()``). A tensor on another device than the set's
+    (AdamW's ``step`` on the CPU under NCCL) crosses on the set's device.
+    A leaf cut over mesh axes (``shard_params``) raises."""
     if not isinstance(params, (dict, list, tuple)):
         params = list(params)
     _refuse_cut(tree_leaves(params), "broadcast_parameters")
+    _ops._group(process_set)
+    device = process_set.world.device
     for leaf in tree_leaves(params):
         if torch.is_tensor(leaf):
             t = leaf.detach()
-            t.copy_(_ops.hvd_broadcast(t, root_rank, process_set=process_set))
+            t.copy_(_ops.hvd_broadcast(t.to(device), root_rank,
+                                       process_set=process_set))
     return params
 
 

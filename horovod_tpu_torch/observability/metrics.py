@@ -1,12 +1,14 @@
 """In-process Counter / Gauge / Histogram objects under the names
 ``horovod_tpu/observability/metrics.py`` gives them: the serve loop's,
-the pipeline's and the checkpoint's.
+the pipeline's, the checkpoint's and the elastic plane's.
 
 Off unless ``HVD_METRICS=1`` (or :func:`enable`): a disabled metric does
-nothing, so the serve loop's instrumentation costs one flag check.
-Label-less only (the pipeline metrics at the end say how they stand in
-for the reference's labels); the Prometheus exposition waits for a later
-slice.
+nothing, so the serve loop's instrumentation costs one flag check. A
+family with label names (``ELASTIC_EVENTS``: ``event``) keeps one child
+per label value, reached by ``labels(...)``; the older families are
+label-less (the pipeline metrics at the end say how they stand in for
+the reference's labels). :func:`render_text` is the Prometheus text of
+every family, which the launcher's KV store serves at ``/metrics``.
 """
 
 import os
@@ -29,14 +31,24 @@ def disable():
     _enabled = False
 
 
-class Metric:
-    """One label-less family: ``inc`` and ``set`` move ``value``;
-    ``observe`` adds to a histogram's bucket counts, ``sum`` and
-    ``count``. ``collect()`` is ``[]`` until the metric saw activity."""
+REGISTRY = []       # every family, in the order made
 
-    def __init__(self, name, help_, kind, buckets=()):
+
+class Metric:
+    """One family: ``inc`` and ``set`` move ``value``; ``observe`` adds to
+    a histogram's bucket counts, ``sum`` and ``count``. With
+    ``labelnames`` the family holds no value itself: ``labels(...)``
+    gives the child for those values. ``collect()`` is ``[(label values,
+    state)]`` for what saw activity."""
+
+    def __init__(self, name, help_, kind, buckets=(), labelnames=(),
+                 register=True):
         self.name, self.help, self.kind = name, help_, kind
         self.buckets = tuple(buckets)
+        self.labelnames = tuple(labelnames)
+        self._children = {}
+        if register:
+            REGISTRY.append(self)
         self._lock = threading.Lock()
         self.touched = False
         self.value = 0.0
@@ -72,7 +84,26 @@ class Metric:
             self.count += 1
             self.touched = True
 
+    def labels(self, *values, **kw):
+        """The child for these label values (positional, or by name)."""
+        key = tuple(str(v) for v in values) if values else tuple(
+            str(kw[n]) for n in self.labelnames)
+        if len(key) != len(self.labelnames):
+            raise ValueError(f"{self.name} takes labels {self.labelnames}, "
+                             f"got {key}")
+        with self._lock:
+            if key not in self._children:
+                self._children[key] = Metric(self.name, self.help,
+                                             self.kind, self.buckets,
+                                             register=False)
+            return self._children[key]
+
     def collect(self):
+        if self.labelnames:
+            with self._lock:
+                children = list(self._children.items())
+            return [(key, state) for key, child in children
+                    for _, state in child.collect()]
         with self._lock:
             if not self.touched:
                 return []
@@ -82,16 +113,54 @@ class Metric:
             return [((), {"value": self.value})]
 
 
-def counter(name, help_=""):
-    return Metric(name, help_, "counter")
+def counter(name, help_="", labelnames=()):
+    return Metric(name, help_, "counter", labelnames=labelnames)
 
 
-def gauge(name, help_=""):
-    return Metric(name, help_, "gauge")
+def gauge(name, help_="", labelnames=()):
+    return Metric(name, help_, "gauge", labelnames=labelnames)
 
 
-def histogram(name, help_="", buckets=()):
-    return Metric(name, help_, "histogram", buckets)
+def histogram(name, help_="", buckets=(), labelnames=()):
+    return Metric(name, help_, "histogram", buckets, labelnames)
+
+
+def _fmt_value(v):
+    v = float(v)
+    return str(int(v)) if v.is_integer() else repr(v)
+
+
+def _fmt_labels(names, values, extra=()):
+    pairs = list(zip(names, values)) + list(extra)
+    if not pairs:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in pairs) + "}"
+
+
+def render_text():
+    """Prometheus text exposition (format version 0.0.4) of every family
+    (``horovod_tpu/observability/metrics.py::render_text``)."""
+    lines, named = [], set()
+    for m in REGISTRY:
+        if m.name not in named:      # PIPELINE_ZB_FALLBACKS: one name
+            named.add(m.name)
+            lines.append(f"# HELP {m.name} {m.help}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+        for key, state in m.collect():
+            labels = _fmt_labels(m.labelnames, key)
+            if m.kind != "histogram":
+                lines.append(f"{m.name}{labels} {_fmt_value(state['value'])}")
+                continue
+            cum = 0
+            for b, c in zip(m.buckets + (float("inf"),), state["buckets"]):
+                cum += c
+                le = "+Inf" if b == float("inf") else _fmt_value(b)
+                lines.append(f"{m.name}_bucket"
+                             f"{_fmt_labels(m.labelnames, key, [('le', le)])}"
+                             f" {cum}")
+            lines.append(f"{m.name}_sum{labels} {_fmt_value(state['sum'])}")
+            lines.append(f"{m.name}_count{labels} {state['count']}")
+    return "\n".join(lines) + "\n"
 
 
 SERVE_QUEUE_DEPTH = gauge(
@@ -197,3 +266,33 @@ CKPT_WRITE_SECONDS = gauge(
 CKPT_LAST_COMMITTED_STEP = gauge(
     "hvd_ckpt_last_committed_step",
     "Step of the newest checkpoint this rank committed")
+
+# The elastic plane (elastic.py, runner/elastic/), under the reference's
+# names and labels. The four gauges are snapshots: the KV client's
+# retries, the evictions this process met, and the driver's promotions
+# and heartbeat misses, which workers read from the driver's stats.
+ELASTIC_EVENTS = counter(
+    "hvd_elastic_events_total",
+    "Elastic lifecycle events (failure / host_update / reset / "
+    "reset_retry)",
+    ("event",))
+ELASTIC_RESET_SECONDS = histogram(
+    "hvd_elastic_reset_seconds",
+    "Re-rendezvous duration (teardown -> new assignment -> init)",
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0))
+ELASTIC_HEARTBEAT_MISSES = gauge(
+    "hvd_elastic_heartbeat_misses",
+    "Workers the elastic driver killed because their liveness heartbeat "
+    "went stale (HVD_PEER_TIMEOUT_MS; the driver's count)")
+ELASTIC_EVICTIONS = gauge(
+    "hvd_elastic_evictions",
+    "Rank evictions this process observed (decided on rank 0, received "
+    "via the shutdown broadcast elsewhere)")
+ELASTIC_KV_RETRIES = gauge(
+    "hvd_elastic_kv_retries",
+    "Transient rendezvous KV-client retries performed by this process "
+    "(bounded exponential backoff, HVD_KV_RETRIES)")
+ELASTIC_PROMOTIONS = gauge(
+    "hvd_elastic_promotions",
+    "Hot-spare promotions the driver reported (spare swapped in for an "
+    "evicted/dead rank via an incremental epoch)")

@@ -1,6 +1,7 @@
 """Chrome-trace span recorder, the part of
-``horovod_tpu/observability/spans.py`` the serve loop uses: :func:`span`
-(a context manager) and :func:`event` (caller-supplied timestamps).
+``horovod_tpu/observability/spans.py`` the port uses: :func:`span`
+(a context manager), :func:`event` (caller-supplied timestamps) and
+:func:`instant` (a point in time: the elastic plane's markers).
 Recording is a no-op unless metrics are enabled (``HVD_METRICS=1``)."""
 
 import contextlib
@@ -52,6 +53,17 @@ class SpanRecorder:
         if _metrics.enabled():
             self._add(name, ts_us, dur_us, cat, args)
 
+    def instant(self, name, **args):
+        """One instant event (``"ph": "i"``) now, process-scoped."""
+        if not _metrics.enabled():
+            return
+        ev = {"name": name, "ph": "i", "ts": time.time_ns() // 1000,
+              "pid": self.pid, "s": "p"}
+        if args:
+            ev["args"] = dict(args)
+        with self._lock:
+            self._events.append(ev)
+
     def events(self):
         """The recorded Chrome-trace events (``{"name", "ph": "X", "ts",
         "dur", "pid", "tid", ...}``)."""
@@ -62,3 +74,4 @@ class SpanRecorder:
 recorder = SpanRecorder()
 span = recorder.span
 event = recorder.event
+instant = recorder.instant

@@ -55,7 +55,9 @@ class World:
     this rank, their number, this rank's device, and ``group``, the
     process group of all of them. Every other group of the job is made by
     :meth:`subgroup`. ``timeout``: seconds any group of the world waits
-    for its peers (:func:`new_group`)."""
+    for its peers (:func:`new_group`). What is built on the world (a
+    :class:`Mesh`, a registered process set) is bound to it and unbound
+    by :meth:`close`."""
 
     def __init__(self, store, rank, size, device, timeout=None):
         self.store = store
@@ -65,6 +67,8 @@ class World:
         self.timeout = coord_timeout() if timeout is None else timeout
         self._ids = itertools.count()
         self._groups = []
+        self._nccl = []          # NCCL groups not yet released
+        self._bound = []         # what close() unbinds
         self.group = self.subgroup(range(self.size))
 
     def subgroup(self, ranks):
@@ -79,15 +83,42 @@ class World:
         group = new_group(self.store, prefix, ranks.index(self.rank),
                           len(ranks), self.device, self.timeout)
         self._groups.append(group)
+        if group.name() == "nccl":
+            self._nccl.append(group)
         return group
 
-    def close(self):
-        """Release the NCCL groups' resources, as
-        ``destroy_process_group`` does; gloo groups need nothing."""
-        for group in self._groups:
-            if group.name() == "nccl":
-                group.shutdown()
+    @property
+    def live_nccl_groups(self):
+        """How many of the world's NCCL groups are not yet shut down or
+        aborted."""
+        return len(self._nccl)
+
+    def bind(self, obj):
+        """Have :meth:`close` call ``obj.unbind()``."""
+        self._bound.append(obj)
+
+    def _release(self, how):
+        for group in self._nccl:
+            getattr(group, how)()
+        self._nccl = []
+
+    def abort(self):
+        """Abort every NCCL group of the world (``ncclCommAbort``): a
+        collective issued on one afterwards fails, and none can hang on a
+        dead peer. The groups stay in place until :meth:`close`."""
+        self._release("abort")
+
+    def close(self, abort=False):
+        """Release the NCCL groups' resources: shut them down, as
+        ``destroy_process_group`` does, or with ``abort`` abort them (an
+        elastic reset: a graceful shutdown can wait on a collective whose
+        peer is dead); gloo groups need neither. Then drop every group and
+        unbind what was built on the world."""
+        self._release("abort" if abort else "shutdown")
         self._groups = []
+        for obj in self._bound:
+            obj.unbind()
+        self._bound = []
 
 
 class Mesh:
@@ -100,8 +131,15 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         self._grid = np.arange(world.size).reshape(tuple(self.shape.values()))
         self._groups = {}
+        self._closed = False
         for axis in self.axis_names:
             self._build((axis,))
+        world.bind(self)
+
+    def unbind(self):
+        """Drop the mesh's groups (its world was closed); a later call
+        for one raises."""
+        self._groups, self._closed = {}, True
 
     @property
     def rank(self):
@@ -134,6 +172,9 @@ class Mesh:
                 return [int(r) for r in row]
 
     def _build(self, axes):
+        if self._closed:
+            raise ValueError("this mesh's world was closed (an elastic "
+                             "reset); build a new mesh on the new world")
         for row in self._slices(axes):
             group = self.world.subgroup(row)
             if group is not None:
@@ -141,7 +182,7 @@ class Mesh:
 
     def group(self, axis):
         """This rank's process group along ``axis``."""
-        return self._groups[(axis,)]
+        return self.groups((axis,))
 
     def groups(self, axes):
         """This rank's process group over the ranks that differ from it

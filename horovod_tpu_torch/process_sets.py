@@ -36,6 +36,11 @@ class ProcessSet:
     def size(self):
         return len(self.ranks)
 
+    def unbind(self):
+        """Forget the world and group (the world was closed); the set's
+        ops raise after this."""
+        self.world, self.group = None, None
+
     def __repr__(self):
         return f"ProcessSet(ranks={self.ranks})"
 
@@ -51,7 +56,8 @@ class _GlobalProcessSet(ProcessSet):
         self.world, self.group = world, world.group
 
     def unbind(self):
-        self.ranks, self.world, self.group = [], None, None
+        super().unbind()
+        self.ranks = []
 
 
 global_process_set = _GlobalProcessSet()
@@ -77,6 +83,7 @@ def add_process_set(process_set_or_ranks, world=None):
                          f"{world.size}")
     ps.group = world.subgroup(ps.ranks)
     ps.world = world
+    world.bind(ps)
     return ps
 
 
@@ -86,4 +93,4 @@ def remove_process_set(process_set):
         raise ValueError("cannot remove the global process set")
     if process_set.world is None:
         raise ValueError("process set has not been registered")
-    process_set.world, process_set.group = None, None
+    process_set.unbind()

@@ -133,8 +133,9 @@ class ServeLoop:
     baseline); the engine paths are identical either way — the A/B
     isolates the scheduling policy. `load_reporter`, when set, is called
     every `report_interval` boundaries with (queue_depth, batch_fill,
-    kv_occupancy) — wire it to runner.elastic.worker.report_serve_load
-    to drive the driver's queue-depth autoscaler.
+    kv_occupancy); the reference wires it to its elastic driver's
+    queue-depth autoscaler, which the port does not have yet (ROADMAP
+    Queue A item 1, rest).
 
     Serving-v2 knobs (None = read the HVD_SERVE_* env knob):
 

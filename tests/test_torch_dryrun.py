@@ -22,6 +22,11 @@ port reaches.
   16-rank step's loss and gradients against the reference's
   single-device composition in JAX (its 16-device mesh needs a process
   of its own, as the reference spawns one), within 1e-5 and 1e-4.
+- The elastic epoch exercise against the reference's
+  ``_elastic_epoch_exercise`` (``horovod_tpu.init()`` at size 1, the
+  JAX package's core): the same epochs, total and resets. The spare
+  promotion exercise spawns a job and runs in
+  tests/test_torch_elastic_job.py.
 """
 
 import dataclasses
@@ -68,7 +73,8 @@ def test_dryrun_multichip_prints_its_line(n, capsys):
     assert lines[0].endswith(
         "ragged-moe ok, pipeline ok, pipeline-schedules ok "
         "(gpipe/1f1b/interleaved/zb grad-parity, bubble orderings hold), "
-        "composed-16dev ok (pp x dp x tp x ep grad parity), serve-prefix "
+        "composed-16dev ok (pp x dp x tp x ep grad parity), elastic ok, "
+        "spare-promotion in test_torch_elastic_job.py, serve-prefix "
         f"ok (warm hit ratio {24 / 52:.2f}) — OK")
     assert took < 30.0, took
 
@@ -246,3 +252,42 @@ def test_composed_exercise_matches_jax_composition():
     for k in W:
         np.testing.assert_allclose(grads[k], np.asarray(want_grads[k]),
                                    atol=1e-4, rtol=0, err_msg=k)
+
+
+def test_elastic_epoch_exercise_matches_reference():
+    """The port's exercise (a TorchState over a one-rank gloo world, the
+    reset a teardown and a new world) against the reference's (an
+    ObjectState over the JAX package's core, the reset its shutdown and
+    init): two epochs, one reset, a total of 2 in each element."""
+    import horovod_tpu as jhvd
+    from horovod_tpu import elastic as jelastic
+
+    captured = {}
+    run_fn = jelastic.run_fn
+
+    def capture(func, reset):
+        resets = []
+
+        def counted():
+            resets.append(1)
+            return reset()
+
+        wrapped = run_fn(func, counted)
+
+        def call(state):
+            captured["epochs"] = wrapped(state)
+            captured["total"] = np.asarray(state.total).tolist()
+            captured["resets"] = len(resets)
+            return captured["epochs"]
+        return call
+
+    jhvd.init()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jelastic, "run_fn", capture)
+            jentry._elastic_epoch_exercise(jhvd)
+    finally:
+        jhvd.shutdown()
+    got = graft_entry._elastic_epoch_exercise()
+    assert got == (captured["epochs"], captured["total"],
+                   captured["resets"]) == (2, [2.0, 2.0], 1)

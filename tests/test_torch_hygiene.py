@@ -8,7 +8,10 @@
   rank, shut down after). Under a mesh (``make_cache(mesh=)``,
   ``ServeLoop(mesh=)``) the device is the mesh's: a one-rank
   ``{"model": 1}`` mesh over ``hvd.init()``'s world, which goes to the
-  card in the same way.
+  card in the same way. The elastic plane: a ``TorchState``'s sync over
+  that world, and an elastic reset (``teardown``, then a new world on
+  the device ``init`` was given); an elastic worker (``HVD_ELASTIC=1``)
+  without a card raises before it meets the driver.
 - One entry point runs only on the CPU, by design: ``dryrun_multichip(n)``
   simulates n ranks as threads over gloo, as the reference's dry run
   forces the CPU, and measures nothing. It never touches CUDA, on a box
@@ -25,6 +28,7 @@ import torch
 torch.set_num_threads(1)
 
 import horovod_tpu_torch.hvd as hvd  # noqa: E402
+from horovod_tpu_torch import distributed  # noqa: E402
 from horovod_tpu_torch.device import resolve_device  # noqa: E402
 from horovod_tpu_torch.graft_entry import (  # noqa: E402
     dryrun_multichip, entry)
@@ -91,12 +95,30 @@ def _entry_points(device):
                                 device=device or "cpu"), **kw),
         "entry": lambda: entry(**kw),
         "hvd.init": lambda: hvd.init(**kw),
+        "TorchState.sync": lambda: _torch_state_sync(kw),
+        "elastic reset": lambda: _elastic_reset(kw),
     }
+
+
+def _torch_state_sync(kw):
+    hvd.init(**kw)
+    state = hvd.elastic.TorchState(
+        w=torch.ones(2, device=distributed.world().device))
+    state.sync()
+    return {"w": state.w}
+
+
+def _elastic_reset(kw):
+    hvd.init(**kw)
+    distributed.teardown()
+    distributed.init_world()
+    return {"ones": hvd.allreduce(torch.ones(2))}
 
 
 ENTRY_POINTS = ["init_params", "params_from_jax", "make_cache", "ServeLoop",
                 "make_cache(mesh=)", "ServeLoop(mesh=)",
-                "create_train_state", "entry", "hvd.init"]
+                "create_train_state", "entry", "hvd.init",
+                "TorchState.sync", "elastic reset"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -149,6 +171,21 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def test_elastic_worker_without_a_card_raises_before_rendezvous(
+        monkeypatch):
+    """``hvd.init()`` in an elastic worker goes to the card: without one
+    it raises at once, before it waits for the driver's epoch (the
+    rendezvous address here leads nowhere)."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card")
+    monkeypatch.setenv("HVD_ELASTIC", "1")
+    monkeypatch.setenv("HVD_RENDEZVOUS_ADDR", "127.0.0.1:1")
+    monkeypatch.setenv("HVD_WORKER_ID", "localhost-0-hygiene")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hvd.init()
+    assert not hvd.is_initialized()
 
 
 def test_dryrun_multichip_never_touches_cuda(monkeypatch, capsys):
