@@ -131,7 +131,29 @@ Phases (each prints its lines; any failure exits non-zero):
    uninterrupted 4-step run in this process; rc 0, no worker left, this
    process's HVD_* variables unchanged; the kill-to-first-step time.
    The world after it is the reset's new one;
-11. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
+11. observability: (a) OBS_STEPS bert-large B=8 S=512 bf16 flash steps
+   through ``hvd.DistributedOptimizer(AdamW)`` with metrics off, then on
+   (``HVD_METRICS``; horovod_tpu_torch/observability), from the same
+   weights: losses and every leaf bit-equal, ``metrics.snapshot()``
+   counting exactly the steps' Horovod ops and bytes (one ``allreduce``
+   per leaf, as the reference counts a grouped op, and one for the loss),
+   the stall inspector empty and silent; the step time off and on; (b) a
+   forced stall (``configure`` of the process-wide inspector to 0.5 s /
+   1 s, one ``report_start`` that never ends): one warning, and the next
+   ``hvd.allreduce`` raises ``StallError`` naming the op; (c) one more
+   step in a profiler window inside a Python span: ``spans.dump`` and
+   ``merge_traces`` write one JSON file holding the ``hvd.*`` ranges and
+   the span, sorted by ``ts``; (d) the serve phase's 8 bf16 requests
+   through ``ServeLoop`` with a ``load_reporter`` feeding an
+   ``AutoscalePolicy``, every observation and decision printed, the
+   tokens equal to a run without the reporter on the same tick clock;
+   (e) the port's launcher with ``--serve-autoscale --min-np 1 --max-np 1
+   --metrics --metrics-port 0`` over this file's ``--serve-worker`` mode:
+   the worker's ``hvd.init()`` starts its ``/metrics`` endpoint, it serves
+   the 8 requests with ``worker.report_serve_load`` as its reporter and
+   scrapes and parses its own ``/metrics``; the driver consumed every
+   report, ``target_np`` 1, no autoscale event; rc 0, no worker left;
+12. resnet: ResNet-50 (s2d stem, B=128, 224x224, bf16, SGD(0.1, 0.9)),
    the bench's resnet50 config, through ``make_train_step`` over the
    same group: step 0 with norm="pallas" (the B4 kernel BN) against
    norm="flax" (torch ops) from the same weights, in float32 at B=16
@@ -139,7 +161,7 @@ Phases (each prints its lines; any failure exits non-zero):
    and var); B4's launches (106) and layout copies per step; a falling
    loss over 5 steps; images/s for each of the three norms and a
    profile; the eval ``entry()``'s logits;
-12. one JSON line of kernels, then the result line.
+13. one JSON line of kernels, then the result line.
 
 Every profile line opens its window through horovod_tpu_torch/profiler.py
 (``start``/``stop``; the trace goes to a temporary directory).
@@ -152,8 +174,8 @@ plain version and torch's own batch-norm reductions (yardsticks only).
 
 Phases 2-3 (serving), 4 (training), 5 (the Horovod API), 6 (the mesh),
 7 (MoE), 8 (the pipeline), 9 (the checkpoint), 10 (elastic; B1-B3
-launches of this process only) and 11 (ResNet training) are the main
-paths:
+launches of this process only), 11 (observability; this process only)
+and 12 (ResNet training) are the main paths:
 each starts with every kernel's launch count at 0 and must launch the
 kernels it runs, every bf16 launch of B1, B2 and B3 on its TMA/wgmma
 kernel. The card has one
@@ -1002,7 +1024,8 @@ def _serve_f32(torch, tfm, loop, params, cfg32, geo, label, **kw):
 
 
 def _serve_bf16(torch, loop, params, cfg, geo, **kw):
-    """(summary of 8 bf16 requests after a warmup, the loop)."""
+    """(summary of 8 bf16 requests after a warmup, the loop, {rid: tokens
+    served})."""
     sl = loop.ServeLoop(params, cfg, geo=geo, max_batch=8, **kw)
     sl.warmup()
     torch.cuda.synchronize()
@@ -1012,7 +1035,7 @@ def _serve_bf16(torch, loop, params, cfg, geo, **kw):
     summary, finished = sl.run(reqs)
     check(len(finished) == 8 and all(r.finish_reason for r in finished),
           f"serve bf16 {kw}: {len(finished)} of 8 requests finished")
-    return summary, sl
+    return summary, sl, {r.rid: list(r.generated) for r in finished}
 
 
 def phase_serve(torch, tfm, loop, kv_cache, convert, hvd, params, cfg,
@@ -1048,18 +1071,19 @@ def phase_serve(torch, tfm, loop, kv_cache, convert, hvd, params, cfg,
                                      device="cuda"),
             str(mesh): _serve_bf16(torch, loop, sharded, cfg, geo,
                                    mesh=mesh)}
-    for name, (summary, _) in runs.items():
+    for name, (summary, _, _) in runs.items():
         print(f"serve bert-large bf16 {name} ({card}): "
               f"{summary['requests']} requests, {summary['tokens']} tokens, "
               f"{summary['tok_s']} tok/s, TTFT p50 "
               f"{summary['ttft_p50_ms']} ms, ITL p50 {summary['itl_p50_ms']} "
               f"ms, batch fill {summary['batch_fill_mean']}")
-    for name, (_, sl) in runs.items():
+    for name, (_, sl, _) in runs.items():
         reqs = loop.poisson_requests(8, 40.0, np.random.default_rng(4),
                                      prompt_len=(16, 128), max_new=(16, 32),
                                      vocab=cfg.vocab_size)
         profile_line(torch, f"serve bert-large bf16 {name} (8 more "
                      f"requests)", lambda: sl.run(reqs))
+    return runs["mesh-free"][2]
 
 
 def _launches(fa):
@@ -1944,9 +1968,9 @@ def phase_pipeline(torch, tfm, dp, fa, hvd, params, cfg, card):
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                            device="cuda")
     n_blocks = sum(x.numel() for x in dp.tree_leaves(params["layers"]))
-    fallbacks = metrics.PIPELINE_ZB_FALLBACKS["single_stage"]
     was_on = metrics.enabled()
     metrics.enable()       # the zb fallback is counted with metrics on
+    fallbacks = metrics.PIPELINE_ZB_FALLBACKS.labels(reason="single_stage")
 
     def embed(c):
         """The pipeline's input: the mesh-free loss's embedding."""
@@ -2670,6 +2694,380 @@ def phase_elastic_launcher(torch, tfm, dp, fa, hvd, card):
     print(line)
 
 
+# The observability phase (11): the training steps' count, the serving
+# loop's load reports, the launcher's serving worker.
+OBS_STEPS = 4
+OBS_REPORT_INTERVAL = 4
+OBS_STALL = dict(warning_sec=0.5, shutdown_sec=1.0, check_interval=0.05)
+
+
+class _TickClock:
+    """A serve loop's clock that moves 2 ms at every read: admission then
+    follows the loop's own calls, not the host's speed, so two runs of the
+    same requests batch alike (and give the same bf16 tokens)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.002
+        return self.t
+
+
+def _obs_requests(loop, cfg):
+    """The serve phase's bf16 requests (_serve_bf16), made anew."""
+    return loop.poisson_requests(8, 40.0, np.random.default_rng(3),
+                                 prompt_len=(16, 128), max_new=(16, 32),
+                                 vocab=cfg.vocab_size)
+
+
+def _obs_steps(torch, tfm, dp, hvd, params, cfg, batches, on, trace_dir):
+    """OBS_STEPS bert-large steps through DistributedOptimizer(AdamW) from
+    ``params``, metrics on or off; with ``trace_dir``, then one more step
+    in a profiler window inside a Python span. Returns (losses, leaves
+    after the timed steps, seconds per step, the metrics snapshot, the
+    expected (calls, bytes), the profiler's trace path)."""
+    from horovod_tpu_torch import profiler
+    from horovod_tpu_torch.observability import metrics, spans
+
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    hp = _trainable(torch, params)
+    hvd.broadcast_parameters(hp, root_rank=0)   # before the count starts
+    hopt = hvd.DistributedOptimizer(_adamw(torch, dp, hp))
+    leaves = dp.tree_leaves(hp)
+
+    def hstep(b):
+        loss = tfm.loss_fn(hp, b, flash)
+        loss.backward()
+        hopt.step()
+        hopt.zero_grad(set_to_none=True)
+        return hvd.allreduce(loss.detach().reshape(1))[0]
+
+    if on:
+        metrics.REGISTRY.clear()
+        metrics.enable()
+    losses, secs = [], []
+    try:
+        with torch.enable_grad():
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(hstep(b).item())
+                secs.append(time.perf_counter() - t0)
+            snap = metrics.snapshot()
+            after = [x.detach().clone() for x in leaves]
+            trace = None
+            if trace_dir is not None:
+                profiler.start(trace_dir)
+                try:
+                    with spans.span("chip_smoke.train_step", cat="python"):
+                        hstep(batches[0]).item()
+                finally:
+                    trace = profiler.stop().trace_path
+    finally:
+        metrics.disable()
+    # a step: one allreduce call per leaf (DistributedOptimizer, the
+    # reference's per-tensor count) and one for the loss
+    n = len(batches)
+    want = (n * (len(leaves) + 1),
+            n * (sum(x.nbytes for x in leaves) + 4))
+    return losses, after, secs, snap, want, trace
+
+
+def phase_observability(torch, tfm, dp, loop, kv_cache, hvd, params, cfg,
+                        card, served):
+    """The observability plane and serving autoscale on the card: (a)
+    OBS_STEPS bert-large steps through DistributedOptimizer with metrics
+    off, then on, bit-equal, the registry counting exactly the steps' ops
+    and bytes, the stall inspector empty and silent; (b) a forced stall:
+    one warning, then the next Horovod op raises StallError naming the
+    op; (c) one step under a profiler window inside a Python span, the
+    span dump merged with the window's trace into one file; (d) the serve
+    phase's 8 requests through ServeLoop with a load reporter feeding an
+    AutoscalePolicy; (e) the port's launcher with --serve-autoscale over
+    one serving worker, which scrapes its own /metrics."""
+    from horovod_tpu_torch.observability import metrics, spans, stall
+    from horovod_tpu_torch.serving.autoscale import AutoscalePolicy
+
+    t_phase = time.perf_counter()
+    print(f"observability: C4 (an uneven vocabulary under a mesh) cannot "
+          f"show on one card: an axis of size 1 divides every dim "
+          f"(tests/test_torch_serving_mesh.py holds it at {{model: 4}} on "
+          f"the CPU)")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 513),
+                                        generator=gen, device="cuda")}
+               for _ in range(OBS_STEPS)]
+    # (a) metrics off, then on, from the same weights
+    off_losses, off_leaves, off_secs, _, _, _ = _obs_steps(
+        torch, tfm, dp, hvd, params, cfg, batches, False, None)
+    spans.recorder.clear()
+    trace_dir = tempfile.mkdtemp(prefix="hvd-obs-")
+    try:
+        on_losses, on_leaves, on_secs, snap, want, trace = _obs_steps(
+            torch, tfm, dp, hvd, params, cfg, batches, True, trace_dir)
+        same = sum(torch.equal(a, b) for a, b in zip(off_leaves, on_leaves))
+        del off_leaves, on_leaves
+        calls = {(s["labels"]["op"], s["labels"]["process_set"]): s["value"]
+                 for s in snap["hvd_op_calls_total"]["samples"]}
+        nbytes = {(s["labels"]["op"], s["labels"]["process_set"]):
+                  s["value"] for s in snap["hvd_op_bytes_total"]["samples"]}
+        lat = snap["hvd_op_latency_seconds"]["samples"]
+        line = (f"observability (a) {OBS_STEPS} bert-large B=8 S=512 bf16 "
+                f"flash DistributedOptimizer steps, metrics off then on "
+                f"({card}): losses bit-equal {off_losses == on_losses}, "
+                f"{same}/{len(dp.tree_leaves(params))} leaves "
+                f"bit-equal; the registry: calls {calls}, bytes {nbytes} "
+                f"(the steps issued {want[0]} calls, {want[1]} bytes), "
+                f"latency sum {sum(s['sum'] for s in lat):.4f} s; in flight "
+                f"{stall.inspector.stalled()}, stall warnings "
+                f"{snap['hvd_stall_warnings_total']['samples']}")
+        check(off_losses == on_losses
+              and same == len(dp.tree_leaves(params))
+              and calls == {("allreduce", "0"): want[0]}
+              and nbytes == {("allreduce", "0"): want[1]}
+              and sum(s["count"] for s in lat) == want[0]
+              and not stall.inspector.stalled()
+              and not snap["hvd_stall_warnings_total"]["samples"], line)
+        print(line)
+        off_ms = np.mean(off_secs[1:]) * 1e3
+        on_ms = np.mean(on_secs[1:]) * 1e3
+        print(f"time observability bert-large DistributedOptimizer step "
+              f"({card}): metrics off {off_ms:.2f} ms, on {on_ms:.2f} ms, "
+              f"difference {on_ms - off_ms:+.2f} ms (mean of steps 2-"
+              f"{OBS_STEPS}; off {[round(x * 1e3, 2) for x in off_secs]}, "
+              f"on {[round(x * 1e3, 2) for x in on_secs]})")
+
+        # (c) the span dump merged with the profiler window's trace
+        t0 = time.perf_counter()
+        py = spans.dump(os.path.join(trace_dir, "spans.json"))
+        merged = spans.merge_traces(os.path.join(trace_dir, "merged.json"),
+                                    trace, py)
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(merged)
+        with open(merged) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        ts = [e.get("ts", 0) for e in events]
+        line = (f"observability (c) span dump + merge_traces ({card}): "
+                f"{len(events)} events, {size} bytes (the profiler's trace "
+                f"{os.path.getsize(trace)} bytes), in {merge_ms:.1f} ms; "
+                f"hvd.grouped_allreduce {'hvd.grouped_allreduce' in names}, "
+                f"hvd.allreduce {'hvd.allreduce' in names}, span "
+                f"{'chip_smoke.train_step' in names}, sorted by ts "
+                f"{ts == sorted(ts)}")
+        check({"hvd.grouped_allreduce", "hvd.allreduce",
+               "chip_smoke.train_step"} <= names and ts == sorted(ts), line)
+        print(line)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        spans.recorder.clear()
+
+    # (b) a forced stall on the process-wide inspector
+    insp = stall.inspector
+    saved = (insp.warning_sec, insp.shutdown_sec, insp.check_interval)
+    insp.stop()
+    insp.configure(**OBS_STALL)
+    metrics.REGISTRY.clear()
+    metrics.enable()
+    raised = None
+    try:
+        t0 = time.perf_counter()
+        insp.report_start("chip_smoke.forced")
+        while not insp.shutdown_fired and time.perf_counter() - t0 < 5.0:
+            time.sleep(0.01)
+        fired_s = time.perf_counter() - t0
+        warns = metrics.STALL_WARNINGS.labels(op="chip_smoke.forced").value
+        try:
+            hvd.allreduce(torch.ones(1, device="cuda"))
+        except stall.StallError as e:
+            raised = str(e)
+    finally:
+        metrics.disable()
+        insp.reset()
+        insp.stop()
+        insp.configure(*saved)
+    line = (f"observability (b) forced stall, {OBS_STALL} ({card}): shutdown "
+            f"verdict after {fired_s:.2f} s, warnings {warns:g}, the next "
+            f"hvd.allreduce raised StallError: {raised!r}")
+    check(warns == 1 and raised is not None
+          and "chip_smoke.forced" in raised, line)
+    print(line)
+
+    # (d) the serve phase's requests with a load reporter
+    geo = kv_cache.geometry(n_pages=256, page_size=16, max_context=512)
+    policy = AutoscalePolicy(1, 4)
+    seen = []
+
+    def report(depth, fill, occupancy):
+        seen.append((depth, round(fill, 3), round(occupancy, 3),
+                     policy.observe(depth, fill)))
+
+    runs = {}
+    for name, kw in (("no reporter", {}),
+                     ("reporter", dict(load_reporter=report,
+                                       report_interval=OBS_REPORT_INTERVAL))):
+        sl = loop.ServeLoop(params, cfg, geo=geo, max_batch=8, device="cuda",
+                            **kw)
+        sl.warmup()
+        summary, finished = sl.run(_obs_requests(loop, cfg),
+                                   clock=_TickClock())
+        runs[name] = {r.rid: list(r.generated) for r in finished}
+        del sl
+    as_served = sum(runs["reporter"][k] == v for k, v in served.items())
+    line = (f"observability (d) ServeLoop bert-large bf16, 8 requests, a "
+            f"load reporter every {OBS_REPORT_INTERVAL} boundaries feeding "
+            f"AutoscalePolicy(1, 4) ({card}): {len(seen)} reports "
+            f"(queue depth, batch fill, KV occupancy, decision): {seen}; "
+            f"tokens equal to the same requests with no reporter "
+            f"{runs['reporter'] == runs['no reporter']}; {as_served}/8 "
+            f"requests served as in the serve phase (wall clock)")
+    check(seen and runs["reporter"] == runs["no reporter"]
+          and sum(map(len, runs["reporter"].values())) > 0, line)
+    print(line)
+
+    # (e) the launcher with --serve-autoscale over one serving worker
+    phase_obs_launcher(torch, card)
+    print(f"observability phase ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def serve_worker(root):
+    """The serving worker of (e), launched by the port's launcher with
+    ``--serve-autoscale --metrics --metrics-port 0`` as ``chip_smoke.py
+    --serve-worker <root>``: ``hvd.init()`` (which starts the /metrics
+    endpoint), the serve phase's 8 requests at bert-large width through a
+    ServeLoop whose load reporter is ``worker.report_serve_load``, a
+    scrape of its own /metrics over HTTP, and the driver's stats once it
+    has consumed every report; each goes to ``<root>/log`` as JSON."""
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    import horovod_tpu_torch.hvd as hvd
+    from horovod_tpu_torch import observability as obs
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.runner import http_server
+    from horovod_tpu_torch.runner.elastic import worker
+    from horovod_tpu_torch.serving import kv_cache, loop
+
+    with open(os.path.join(root, "pids"), "a") as f:
+        f.write(f"{os.getpid()}\n")
+    out = {}
+    hvd.init()
+    try:
+        out["port"] = port = obs.endpoint_port()
+        cfg = tfm.bert_large()
+        params = tfm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        reports = []
+
+        def report(depth, fill, occupancy):
+            reports.append((depth, round(fill, 3)))
+            worker.report_serve_load(depth, fill, occupancy)
+
+        sl = loop.ServeLoop(
+            params, cfg, geo=kv_cache.geometry(n_pages=256, page_size=16,
+                                               max_context=512),
+            max_batch=8, device="cuda", load_reporter=report,
+            report_interval=OBS_REPORT_INTERVAL)
+        sl.warmup()
+        summary, _ = sl.run(_obs_requests(loop, cfg))
+        out["tokens"], out["reports"] = summary["tokens"], reports
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            body = r.read().decode()
+        out["scrape_ms"] = (time.perf_counter() - t0) * 1e3
+        out["scrape_bytes"] = len(body)
+        samples = {}
+        for ln in body.splitlines():
+            if ln and not ln.startswith("#"):
+                key, value = ln.rsplit(" ", 1)
+                samples[key] = float(value)
+        out["samples"] = len(samples)
+        out["hvd_serve_tokens"] = samples.get("hvd_serve_tokens")
+        out["hvd_serve_queue_depth"] = samples.get("hvd_serve_queue_depth")
+        # Wait for the driver to consume the last report (its key gone),
+        # then read its stats. One key per worker: a report that the next
+        # overwrites before the driver's poll is lost, as in the reference.
+        deadline = time.monotonic() + 20.0
+        while time.monotonic() < deadline:
+            try:
+                http_server.read_kv(
+                    worker._rdv_addr(), "ctl",
+                    f"serve_load/{worker._worker_id()}",
+                    secret_key=worker._rdv_secret())
+            except urllib.error.HTTPError as e:
+                if e.code == 404:
+                    break
+                raise
+            time.sleep(0.05)
+        time.sleep(0.3)                         # the stats follow the key
+        worker._driver_stats_ts = 0.0           # past the stats' cache
+        stats = worker.fetch_driver_stats()
+        out["driver"] = {k: stats.get(k) for k in (
+            "serve_loads", "target_np", "autoscale_events")}
+    finally:
+        with open(os.path.join(root, "log"), "w") as f:
+            json.dump(out, f)
+        hvd.shutdown()
+
+
+def phase_obs_launcher(torch, card):
+    """(e): ``python -m horovod_tpu_torch.runner.launch --serve-autoscale
+    --min-np 1 --max-np 1 --metrics --metrics-port 0`` over
+    ``serve_worker``. The job's rc must be 0 and no worker may outlive it;
+    the worker's scrape must parse and count its served tokens; the
+    driver must have consumed every load report, with target_np 1 and no
+    autoscale event (one card: two NCCL ranks cannot share it, so scaling
+    runs over gloo on the CPU only, tests/test_torch_autoscale.py); this
+    process's HVD_* variables must be as they were."""
+    from horovod_tpu_torch import graft_entry
+
+    hvd_env = {k: v for k, v in os.environ.items() if k.startswith("HVD_")}
+    root = tempfile.mkdtemp(prefix="hvd-obs-job-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "--serve-autoscale", "--min-np", "1", "--max-np", "1",
+           "--metrics", "--metrics-port", "0", "--verbose",
+           sys.executable, os.path.abspath(__file__), "--serve-worker", root]
+    try:
+        t0 = time.perf_counter()
+        rc, out = graft_entry._run_job(cmd, env, 300,
+                                       os.path.join(root, "pids"))
+        job_s = time.perf_counter() - t0
+        check(rc == 0, f"observability (e): the job exited {rc}:\n"
+                       f"{out[-3000:]}")
+        with open(os.path.join(root, "log")) as f:
+            got = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check({k: v for k, v in os.environ.items() if k.startswith("HVD_")}
+          == hvd_env, "observability (e) left HVD_* variables changed")
+    drv = got.get("driver", {})
+    line = (f"observability (e) tpurun --serve-autoscale --min-np 1 "
+            f"--max-np 1 --metrics --metrics-port 0, one serving worker "
+            f"({card}): rc {rc} in {job_s:.1f} s; the worker's /metrics on "
+            f"port {got.get('port')}: scrape {got.get('scrape_ms', 0):.2f} "
+            f"ms, {got.get('scrape_bytes')} bytes, {got.get('samples')} "
+            f"samples parsed, hvd_serve_tokens {got.get('hvd_serve_tokens')}"
+            f" (served {got.get('tokens')}); {len(got.get('reports', []))} "
+            f"load reports {got.get('reports')}; the driver's stats {drv} "
+            f"(a report the next overwrites before the driver's poll is "
+            f"lost, as in the reference)")
+    check(got.get("port") and got.get("samples")
+          and got.get("hvd_serve_tokens") == got.get("tokens") > 0
+          and got.get("reports")
+          and 1 <= (drv.get("serve_loads") or 0) <= len(got["reports"])
+          and drv.get("target_np") == 1 and drv.get("autoscale_events") == 0,
+          line)
+    print(line)
+
+
 def b4_bound_ms(R, C, dtype_name, same, spec):
     """B4's least time: each distinct input read once (``same``: a and b
     are one tensor) and s, p written once in float32, over the memory
@@ -3026,14 +3424,14 @@ def main():
 
     def serving():
         longctx = phase_forward(torch, tfm, fa, params, cfg)
-        phase_serve(torch, tfm, loop, kv_cache, convert, hvd, params, cfg,
-                    card)
-        return longctx
+        return longctx, phase_serve(torch, tfm, loop, kv_cache, convert, hvd,
+                                    params, cfg, card)
 
     hvd.init()                            # NCCL, world size 1
     try:
         group = hvd.global_process_set.group
-        served, longctx = run_path("serving", serving, ["flash_fwd"])
+        served, (longctx, served_bf16) = run_path("serving", serving,
+                                                  ["flash_fwd"])
         trained, _ = run_path("training", lambda: phase_train(
             torch, tfm, fa, dp, params, cfg, group, longctx),
             ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
@@ -3074,6 +3472,9 @@ def main():
                                   ["flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv"])
         group = hvd.global_process_set.group   # the reset's new world
+        obs_ran, _ = run_path("observability", lambda: phase_observability(
+            torch, tfm, dp, loop, kv_cache, hvd, params, cfg, card,
+            served_bf16), ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
         del params                        # bert-large leaves the card
         torch.cuda.empty_cache()
         resnet_ran, _ = run_path("ResNet training", lambda: phase_resnet(
@@ -3082,7 +3483,7 @@ def main():
     finally:
         hvd.shutdown()
     paths = (served, trained, hvd_ran, mesh_ran, moe_ran, pipe_ran,
-             ckpt_ran, elastic_ran, resnet_ran)
+             ckpt_ran, elastic_ran, obs_ran, resnet_ran)
     by_variant = {w: {var: sum(r[f"{w} by variant"][var] for r in paths)
                       for var in counters[w].variant_launches}
                   for w in VARIANT_WRAPPERS}
@@ -3117,5 +3518,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:
         elastic_worker(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-worker"]:
+        serve_worker(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

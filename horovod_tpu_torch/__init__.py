@@ -42,6 +42,16 @@ Horovod API over process groups:
 
 Entry points take an explicit ``device``; ``None`` means the CUDA card
 and raises when there is none (see :mod:`.device`).
+
+Importing the package imports no torch (``resolve_device`` loads
+:mod:`.device` at first use), so the launcher, ``python -m
+horovod_tpu_torch.runner.launch``, spawns its workers without paying for
+torch's import first.
 """
 
-from .device import resolve_device  # noqa: F401
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

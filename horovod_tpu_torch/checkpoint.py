@@ -18,7 +18,10 @@ in the manifest is the reference's. Where a leaf lies:
   coordinate: ``shard_params``' rule. The rank whose coordinate is 0 on
   every mesh axis the leaf is not cut over writes it, so exactly one rank
   writes each block (the reference's ``replica_id == 0``). A marked leaf
-  without ``mesh=`` raises.
+  without ``mesh=`` raises. A dim that ``shard_params`` padded to a
+  multiple of its axis (``mesh.PaddedAxis``: an uneven vocabulary) is
+  saved at its true size, the pad rows never written, and restored
+  with zeros in them.
 - Any other tensor, numpy array or number is written whole by the set's
   root, its lowest member.
 
@@ -251,7 +254,10 @@ def _resolve_dir(directory):
 def _box(name, spec, shape, mesh):
     """(global shape, [[start, stop], ...], writes) of a leaf of local
     ``shape`` cut by ``spec`` under ``mesh``, for this rank: ``writes``
-    when its coordinate is 0 on every axis the leaf is not cut over."""
+    when its coordinate is 0 on every axis the leaf is not cut over. A
+    dim padded to a multiple of its axis (``mesh.PaddedAxis``) counts
+    its true size: the global shape is unpadded, and the rank's range
+    stops there (it may be empty)."""
     if mesh is None:
         raise ValueError(f"tensor {name} is marked with spec {spec}: pass "
                          f"the mesh it is cut under (mesh=)")
@@ -267,8 +273,9 @@ def _box(name, spec, shape, mesh):
             raise ValueError(f"tensor {name} is cut over '{axis}', which "
                              f"{mesh} does not have")
         k, c = mesh.shape[axis], coords[axis]
-        gshape.append(int(n) * k)
-        index.append([c * int(n), (c + 1) * int(n)])
+        whole = getattr(axis, "size", int(n) * k)
+        gshape.append(whole)
+        index.append([min(c * int(n), whole), min((c + 1) * int(n), whole)])
     writes = all(coords[a] == 0 for a in mesh.axis_names if a not in spec)
     return gshape, index, writes
 
@@ -290,14 +297,19 @@ def _snapshot(tree, me, root, mesh):
     for name, leaf in tree_flatten_with_path(tree):
         if torch.is_tensor(leaf):
             dtype = _dtype_name(leaf)
+            t = leaf.detach()
             if is_marked(leaf):
                 gshape, index, writes = _box(name, leaf_spec(leaf),
                                              leaf.shape, mesh)
+                # a padded dim's pad rows stay behind
+                for dim, (a, b) in enumerate(index):
+                    if b - a != t.shape[dim]:
+                        t = t.narrow(dim, 0, b - a)
+                writes = writes and (t.numel() > 0 or leaf.numel() == 0)
             else:
                 gshape = [int(d) for d in leaf.shape]
                 index, writes = [[0, d] for d in gshape], me == root
             if writes:
-                t = leaf.detach()
                 if t.is_cuda:
                     host = torch.empty(t.shape, dtype=t.dtype,
                                        pin_memory=True)
@@ -736,7 +748,13 @@ def _restore_sharded(path, tree_like, mesh):
             raise CheckpointError(
                 f"tensor {name}: tree_like shape {tuple(leaf.shape)} "
                 f"(whole {tuple(want)}) != saved shape {tuple(gshape)}")
-        t = _as_tensor(reader.read_region(name, bounds, dtype), dtype, leaf)
+        arr = reader.read_region(name, bounds, dtype)
+        if spec is not None and arr.shape != tuple(leaf.shape):
+            # a padded dim (mesh.PaddedAxis): zeros past the true rows
+            full = np.zeros(tuple(leaf.shape), arr.dtype)
+            full[tuple(slice(0, d) for d in arr.shape)] = arr
+            arr = full
+        t = _as_tensor(arr, dtype, leaf)
         out.append(t if spec is None else set_leaf_spec(t, spec))
     return tree_unflatten(tree_like, out)
 

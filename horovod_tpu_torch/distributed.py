@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import observability
 from .device import resolve_device
 from .ops import torch_ops
 from .parallel.mesh import World, create_mesh
@@ -102,10 +103,15 @@ def init(device=None):
     ``device=None`` means the CUDA card ``HVD_LOCAL_RANK`` (made current)
     and NCCL; it raises where there is no card. ``device="cpu"`` means
     gloo. The device is remembered: an elastic reset builds the next
-    world on it. Idempotent."""
+    world on it. Idempotent.
+
+    First, as the reference's ``init`` does, it starts this process's
+    ``/metrics`` endpoint when ``HVD_METRICS=1`` and ``HVD_METRICS_PORT``
+    are set (``observability.maybe_start_endpoint``)."""
     global _device
     if _job is not None:
         return
+    observability.maybe_start_endpoint()
     resolve_device(device)       # no card: raise before any rendezvous
     _device = device
     from .runner.elastic import worker
@@ -155,8 +161,12 @@ def init_world():
 
 
 def shutdown():
-    """Leave the job; symmetric with :func:`init`."""
+    """Leave the job; symmetric with :func:`init`: also stops the
+    ``/metrics`` endpoint and the stall inspector's watcher thread (the
+    next op after a new :func:`init` starts another)."""
     _leave(abort=False)
+    observability.stop_endpoint()
+    observability.stall.inspector.stop()
 
 
 def teardown():

@@ -39,6 +39,7 @@ from .exceptions import (  # noqa: F401  (hvd.elastic.HostsUpdatedInterrupt)
     HorovodInternalError, HostsUpdatedInterrupt, RankEvictedError)
 from .observability import metrics as _metrics
 from .observability import spans as _spans
+from .observability import stall as _stall
 from .ops import torch_ops as _ops
 from .process_sets import global_process_set
 from .tree import tree_leaves
@@ -48,15 +49,16 @@ _evictions = [0]         # RankEvictedErrors this process has seen
 
 
 def _note_eviction(e):
-    """A RankEvictedError names the culprit: push the eviction to the
-    elastic driver so it SIGKILLs the wedged process now instead of
-    waiting for the liveness backstop to notice. (The reference also
-    clears the evictee's ops from its Python stall inspector, which the
-    port does not have yet: ROADMAP Queue A item 1, rest.)"""
+    """A RankEvictedError names the culprit. Clear its ops from the
+    stall inspector (a survivor must not be shut down for a stall the
+    evictee caused) and push the eviction to the elastic driver so it
+    SIGKILLs the wedged process now instead of waiting for the liveness
+    backstop to notice."""
     if not isinstance(e, RankEvictedError) or e.rank < 0:
         return
     from .runner.elastic import worker as _worker
 
+    _stall.inspector.mark_rank_evicted(e.rank)
     _evictions[0] += 1
     if _metrics.enabled():
         _metrics.ELASTIC_EVENTS.labels(event="evict").inc()
@@ -468,6 +470,10 @@ def run_fn(func, reset):
                             time.perf_counter() - t0)
                     else:
                         _retry_reset(reset)
+                    # The old world's ops, aborted in flight, never
+                    # report done; a verdict taken while the reset ran
+                    # (its NCCL aborts take seconds) is the old world's.
+                    _stall.inspector.reset()
                     state.on_reset()
                     reset_required = False
                 state.sync()

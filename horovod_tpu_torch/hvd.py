@@ -20,7 +20,10 @@ take ``process_set=`` (default: every rank); for the compiled-step
 analog see :func:`horovod_tpu_torch.parallel.make_train_step`. Under
 ``HVD_PROFILER=1`` or :func:`horovod_tpu_torch.profiler.start` every op,
 and each ``DistributedOptimizer`` reduction, is a profiler range named
-``hvd.<op>``.
+``hvd.<op>``; under ``HVD_METRICS=1`` each is counted in the metrics
+registry (calls, bytes, latency by op and process set) and watched by
+the stall inspector, and ``HVD_METRICS_PORT`` makes ``hvd.init()`` serve
+them at ``/metrics`` (:mod:`horovod_tpu_torch.observability`).
 """
 
 import torch
@@ -44,6 +47,7 @@ from .distributed import (  # noqa: F401
     size,
 )
 from . import profiler as _profiler
+from .observability import metrics as _metrics
 from .exceptions import HorovodInternalError, HostsUpdatedInterrupt  # noqa: F401
 from .ops import torch_ops as _ops
 from .ops.torch_ops import (  # noqa: F401
@@ -164,10 +168,20 @@ class _DistributedOptimizer:
                 return None
             grads = [a.div_(n) for a in self._acc]
             self._acc, self._count = None, 0
-        with _profiler.op_range("hvd.grouped_allreduce", self._cuda):
-            reduced = _ops._reduce_leaves(grads, self.op,
-                                          _ops._group(self.process_set),
-                                          self.compression, self._wire)
+        def reduce():
+            return _ops._reduce_leaves(grads, self.op,
+                                       _ops._group(self.process_set),
+                                       self.compression, self._wire)
+
+        # The reduction is a Horovod op: ranged, and with metrics on
+        # counted per leaf and watched, as ops/torch_ops.py's wrapper does.
+        if _metrics.enabled():
+            reduced = _ops.instrumented_call(
+                "allreduce", "hvd.grouped_allreduce", None, self.process_set,
+                [g.nbytes for g in grads], self._cuda, reduce)
+        else:
+            with _profiler.op_range("hvd.grouped_allreduce", self._cuda):
+                reduced = reduce()
         for p, g in zip(self._params, reduced):
             p.grad = g
         return self.optimizer.step()

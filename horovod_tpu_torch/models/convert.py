@@ -16,7 +16,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import torch_ops
-from ..parallel.mesh import set_leaf_spec
+from ..parallel.mesh import PaddedAxis, leaf_spec, set_leaf_spec
 from .transformer import filter_specs, param_specs
 
 
@@ -56,40 +56,57 @@ def shard_params(params, cfg, mesh):
     none a view of ``params``, each marked with its spec
     (``parallel/mesh.py::set_leaf_spec``): ``make_train_step`` and
     ``replicate`` then neither reduce nor broadcast a leaf over an axis it
-    is cut along."""
+    is cut along.
+
+    A vocabulary the axis does not divide (bert-large's 30522 rows over
+    ``{"model": 4}``) is padded with zero rows to the next multiple, as
+    GSPMD pads the reference's split, and its spec entry records the true
+    size (``mesh.PaddedAxis``): the engine's logits, the model's gathered
+    table, the checkpoint and :func:`gather_params` drop the pad rows,
+    and the train step gives them no gradient. Any other dim that does
+    not divide raises."""
     coords = dict(zip(mesh.axis_names, mesh.coords()))
 
-    def take(x, spec):
+    def take(x, spec, pad_rows=False):
+        spec = list(spec)
         for dim, axis in enumerate(spec):
             if axis is None:
                 continue
-            n = mesh.shape[axis]
-            if x.shape[dim] % n != 0:
-                raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does "
-                                 f"not divide by the '{axis}' axis size {n}")
+            n, d = mesh.shape[axis], x.shape[dim]
+            if d % n != 0:
+                if not (pad_rows and dim == 0):
+                    raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf "
+                                     f"does not divide by the '{axis}' axis "
+                                     f"size {n}")
+                x = torch.cat([x, x.new_zeros((-d % n,) + x.shape[1:])])
+                spec[dim] = PaddedAxis(axis, d)
             size = x.shape[dim] // n
             x = x.narrow(dim, coords[axis] * size, size)
         return set_leaf_spec(x.clone(memory_format=torch.contiguous_format),
                              spec)
 
-    return _map_specs(take, params,
-                      filter_specs(param_specs(cfg), mesh))
+    specs = filter_specs(param_specs(cfg), mesh)
+    return {k: (take(v, specs[k], pad_rows=True) if k == "embed"
+                else _map_specs(take, v, specs[k]))
+            for k, v in params.items()}
 
 
 def gather_params(params, cfg, mesh):
     """The inverse of :func:`shard_params`: the whole tree, on every rank,
     from each rank's shard (all-gathers over the mesh's axis groups; a
-    collective). Not differentiable."""
+    collective), a padded vocabulary cut back to its true rows. Not
+    differentiable."""
     def put(x, spec):
+        spec = leaf_spec(x) or spec     # a padded dim's true size
         x = x.detach()
         for dim, axis in enumerate(spec):
             if axis is not None:
                 x = torch_ops.allgather(x.movedim(dim, 0),
                                         mesh.group(axis)).movedim(0, dim)
+                x = x.narrow(dim, 0, getattr(axis, "size", x.shape[dim]))
         return x.contiguous()
 
-    return _map_specs(put, params,
-                      filter_specs(param_specs(cfg), mesh))
+    return _map_specs(put, params, filter_specs(param_specs(cfg), mesh))
 
 
 def _flat(tree, prefix=""):

@@ -433,8 +433,11 @@ def _hidden(params, tokens, cfg, mesh):
     seq_group, model_group = _groups(cfg, mesh)
     tokens = _seq_block(tokens, seq_group)
     # Activations are the same on every rank of `model`: the gathered
-    # table's gradient is whole on each, which keeps its own rows.
-    embed = gather_replicated(params["embed"], model_group, 0)
+    # table's gradient is whole on each, which keeps its own rows. A
+    # padded vocabulary (convert.shard_params) loses its pad rows here,
+    # so they reach no logit and get a zero gradient.
+    embed = gather_replicated(params["embed"], model_group,
+                              0)[:cfg.vocab_size]
     x = embed.to(dt)[tokens]
     x = x + _seq_block(params["pos_embed"].to(dt)[:S][None], seq_group)
     remat = cfg.remat and torch.is_grad_enabled()

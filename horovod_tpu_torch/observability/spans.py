@@ -1,10 +1,24 @@
-"""Chrome-trace span recorder, the part of
-``horovod_tpu/observability/spans.py`` the port uses: :func:`span`
-(a context manager), :func:`event` (caller-supplied timestamps) and
-:func:`instant` (a point in time: the elastic plane's markers).
-Recording is a no-op unless metrics are enabled (``HVD_METRICS=1``)."""
+"""Python-side span recorder and Chrome-trace merge: the port of
+``horovod_tpu/observability/spans.py``.
+
+:func:`span` (a context manager), :func:`event` (caller-supplied
+timestamps) and :func:`instant` (a point in time: the elastic plane's
+markers) record the Python half of a job, the serve loop's steps, the
+checkpoint's phases, elastic resets and anything a caller wraps, in the
+Chrome-trace event schema. :func:`dump` writes them out, and
+:func:`merge_traces` folds any number of such files into one
+Perfetto-loadable JSON. The port has no C++ core timeline: what a merge
+puts beside the Python spans is the trace that
+:func:`horovod_tpu_torch.profiler.stop` exports (torch.profiler's ops,
+the ``hvd.<op>`` ranges and, on the card, the kernels).
+
+Recording is a no-op unless metrics are enabled (``HVD_METRICS=1``): the
+disabled :func:`span` returns a shared nullcontext, with no clock read
+and no lock.
+"""
 
 import contextlib
+import json
 import os
 import threading
 import time
@@ -70,8 +84,68 @@ class SpanRecorder:
         with self._lock:
             return list(self._events)
 
+    def clear(self):
+        with self._lock:
+            self._events.clear()
+
+    def dump(self, path):
+        """Write the recorded events as Chrome-trace JSON (the object
+        form, ``{"traceEvents": [...]}``, which Perfetto reads); returns
+        ``path``."""
+        with open(path, "w") as f:
+            json.dump({"traceEvents": self.events(),
+                       "displayTimeUnit": "ms"}, f)
+        return path
+
 
 recorder = SpanRecorder()
 span = recorder.span
 event = recorder.event
 instant = recorder.instant
+dump = recorder.dump
+
+
+# ---------------------------------------------------------------------------
+# Merge
+
+def _load_trace_events(path):
+    """Events from a Chrome-trace file in either shape (a bare array or
+    ``{"traceEvents": ...}``). A trace file snapshotted while its writer
+    still runs lacks its closing ``]``: the common truncations are
+    repaired instead of failing the whole merge; anything else raises
+    ``ValueError``."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        data = json.loads(text)
+    except ValueError:
+        t = text.rstrip().rstrip(",")
+        for suffix in ("]", "}]", '"}]'):
+            try:
+                data = json.loads(t + suffix)
+                break
+            except ValueError:
+                continue
+        else:
+            raise ValueError(f"{path}: not parseable as Chrome-trace JSON "
+                             f"(even after truncation repair)")
+    if isinstance(data, dict):
+        data = data.get("traceEvents", [])
+    if not isinstance(data, list):
+        raise ValueError(f"{path}: expected an event array or "
+                         f"{{'traceEvents': [...]}}")
+    return [e for e in data if isinstance(e, dict)]
+
+
+def merge_traces(out_path, *paths, extra_events=()):
+    """Merge Chrome-trace files (a profiler window's export, span dumps
+    of several processes) into one Perfetto-loadable JSON at
+    ``out_path``: the events concatenated and sorted by ``ts``, each
+    file's pid/tid rows kept apart. Returns ``out_path``."""
+    events = list(extra_events)
+    for p in paths:
+        events.extend(_load_trace_events(p))
+    events.sort(key=lambda e: e.get("ts", 0))
+    with open(out_path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+    return out_path

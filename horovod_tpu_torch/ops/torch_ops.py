@@ -15,10 +15,12 @@ result on the input's device.
   with no negotiation it names nothing.
 
 What the C++ core adds beyond the data plane (``join``, async handles
-with ``poll``/``synchronize``, the response cache, timeline, autotune
-and the stall inspector) is not part of the port (ROADMAP Queue A item
-16). The Horovod ops run inside profiler ranges named ``hvd.<op>``
-(:mod:`..profiler`; the end of this module).
+with ``poll``/``synchronize``, the response cache, timeline and
+autotune) is not part of the port (ROADMAP Queue A item 16). The
+Horovod ops run inside profiler ranges named ``hvd.<op>``
+(:mod:`..profiler`) and, with metrics on, are counted in the metrics
+registry and watched by the stall inspector (:mod:`..observability`;
+the end of this module).
 
 A collective that fails in flight raises
 :class:`~..exceptions.HorovodInternalError`.
@@ -509,14 +511,52 @@ def metric_average(value, name=None, process_set=global_process_set):
 
 
 # ---------------------------------------------------------------------------
-# Profiler ranges around the user-facing ops (collective_ops.py:517-600,
-# the profiler half of ``_instrumented``): each call runs inside a range
-# named ``hvd.<op>`` (profiler.py), an NVTX range too when its tensors
-# are on the card. Applied by rebinding, so the Horovod API (hvd.py)
-# and the ops' own callers go through it. With profiling off a call costs
-# one flag check. The other half of the reference's wrapper, metrics
-# recording and the stall inspector, waits for ROADMAP Queue A item 1
-# (rest).
+# The op wrapper around the user-facing ops (collective_ops.py:517-600,
+# ``_instrumented``). Applied by rebinding, so the Horovod API (hvd.py)
+# and the ops' own callers go through it. Each call:
+#
+# - runs inside a profiler range named ``hvd.<op>`` (profiler.py), an NVTX
+#   range too when its tensors are on the card;
+# - with metrics on (``HVD_METRICS=1``): first raises a stall the
+#   inspector's watcher decided (``inspector.check_shutdown``), reports
+#   its start to the stall inspector under its name (``name=``, else an
+#   auto-name ``<range op>.noname.<n>`` as the core makes them), and in a
+#   ``finally`` records the call (``metrics.record_call``: the op, the
+#   wall time, the payload's bytes, the process set's integer id) and
+#   reports it done. The port's ops block, so the time is the full
+#   completion wait, where the reference records an async enqueue and
+#   its ``synchronize`` apart (``<op>.wait``).
+#
+# With profiling and metrics off a call costs the two flag checks: no
+# clock read, no byte count, no lock.
+#
+# The counts are the reference's. A grouped op (``allreduce_pytree``,
+# ``broadcast_pytree``, and ``DistributedOptimizer.step``, hvd.py) counts
+# once per tensor, as the reference's grouped fan-out sends each tensor
+# through its wrapper: an ``allreduce`` (or ``broadcast``) call per leaf
+# with that leaf's bytes, each with an equal share of the one call's wall
+# time, so the family's sum is the time spent. The object ops count once,
+# as ``allgather_object`` / ``broadcast_object``, with no tensor bytes.
+
+import itertools as _itertools
+import threading as _threading
+import time as _time
+
+from ..observability import metrics as _metrics
+from ..observability import stall as _stall
+
+_names_lock = _threading.Lock()
+_name_counters = {}
+
+
+def _auto_name(op, name):
+    """``name``, or ``<op>.noname.<n>`` (collective_ops.py:57)."""
+    if name is not None:
+        return name
+    with _names_lock:
+        counter = _name_counters.setdefault(op, _itertools.count())
+        return f"{op}.noname.{next(counter)}"
+
 
 def _on_cuda(args, kwargs):
     """Whether a call's tensors (the first tensor leaf of its first
@@ -533,27 +573,81 @@ def _on_cuda(args, kwargs):
     return world is not None and world.device.type == "cuda"
 
 
-def _instrumented(fn, op):
-    range_name = "hvd." + op
+def _leaf_bytes(tree):
+    """Each tensor leaf's ``nbytes``, in flatten order."""
+    return [t.nbytes for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def instrumented_call(op, range_name, name, process_set, sizes, cuda, fn):
+    """Run ``fn()`` as one Horovod op with metrics on (see above):
+    ``sizes`` are the payload's bytes, one entry per call the reference
+    counts (a grouped op's leaves), or ``None`` for an op that counts
+    once with no tensor bytes."""
+    _stall.inspector.check_shutdown()
+    name = _auto_name(range_name[len("hvd."):], name)
+    ps = getattr(process_set, "process_set_id", process_set)
+    _stall.inspector.report_start(name)
+    t0 = _time.perf_counter()
+    try:
+        with _profiler.op_range(range_name, cuda):
+            return fn()
+    finally:
+        seconds = _time.perf_counter() - t0
+        if sizes is None:
+            _metrics.record_call(op, seconds, 0, ps)
+        else:
+            share = seconds / max(1, len(sizes))
+            for n in sizes:
+                _metrics.record_call(op, share, n, ps)
+        _stall.inspector.report_done(name)
+
+
+# function -> (its range's op, its calls' op label, the positional index
+# of ``name`` and of ``process_set``). args[0] is the payload: a tensor, a
+# tree counted per leaf, or (_TENSORLESS) none.
+_OPS = {
+    "hvd_allreduce": ("allreduce", "allreduce", 2, 3),
+    "hvd_allreduce_pytree": ("grouped_allreduce", "allreduce", 2, 3),
+    "hvd_allgather": ("allgather", "allgather", 1, 2),
+    "hvd_alltoall": ("alltoall", "alltoall", 2, 3),
+    "hvd_reducescatter": ("reducescatter", "reducescatter", 2, 3),
+    "hvd_broadcast": ("broadcast", "broadcast", 2, 3),
+    "hvd_broadcast_pytree": ("grouped_broadcast", "broadcast", 2, 3),
+    "allgather_object": ("allgather_object", "allgather_object", 1, 2),
+    "broadcast_object": ("broadcast_object", "broadcast_object", 2, 3),
+    "barrier": ("barrier", "barrier", None, 0),
+}
+_TENSORLESS = frozenset(("allgather_object", "broadcast_object", "barrier"))
+
+
+def _arg(args, kwargs, key, index, default):
+    if key in kwargs:
+        return kwargs[key]
+    if index is not None and len(args) > index:
+        return args[index]
+    return default
+
+
+def _instrumented(fn, range_op, op, name_index, ps_index):
+    range_name = "hvd." + range_op
+    tensorless = op in _TENSORLESS
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        if not _profiler.enabled():
-            return fn(*args, **kwargs)
-        with _profiler.op_range(range_name, _on_cuda(args, kwargs)):
-            return fn(*args, **kwargs)
+        if not _metrics.enabled():
+            if not _profiler.enabled():
+                return fn(*args, **kwargs)
+            with _profiler.op_range(range_name, _on_cuda(args, kwargs)):
+                return fn(*args, **kwargs)
+        sizes = None if tensorless else _leaf_bytes(
+            args[0] if args else kwargs.get("x", kwargs.get("tree")))
+        return instrumented_call(
+            op, range_name, _arg(args, kwargs, "name", name_index, None),
+            _arg(args, kwargs, "process_set", ps_index, global_process_set),
+            sizes, _on_cuda(args, kwargs), lambda: fn(*args, **kwargs))
     return wrapper
 
 
-for _fn, _op in (("hvd_allreduce", "allreduce"),
-                 ("hvd_allreduce_pytree", "grouped_allreduce"),
-                 ("hvd_allgather", "allgather"),
-                 ("hvd_alltoall", "alltoall"),
-                 ("hvd_reducescatter", "reducescatter"),
-                 ("hvd_broadcast", "broadcast"),
-                 ("hvd_broadcast_pytree", "grouped_broadcast"),
-                 ("allgather_object", "allgather_object"),
-                 ("broadcast_object", "broadcast_object"),
-                 ("barrier", "barrier")):
-    globals()[_fn] = _instrumented(globals()[_fn], _op)
-del _fn, _op
+for _fn, (_range_op, _op, _ni, _pi) in _OPS.items():
+    globals()[_fn] = _instrumented(globals()[_fn], _range_op, _op, _ni, _pi)
+del _fn, _range_op, _op, _ni, _pi

@@ -69,6 +69,7 @@ class World:
         self._groups = []
         self._nccl = []          # NCCL groups not yet released
         self._bound = []         # what close() unbinds
+        self._set_ids = itertools.count(1)   # 0 is the global set's
         self.group = self.subgroup(range(self.size))
 
     def subgroup(self, ranks):
@@ -92,6 +93,12 @@ class World:
         """How many of the world's NCCL groups are not yet shut down or
         aborted."""
         return len(self._nccl)
+
+    def next_set_id(self):
+        """The id of the next process set registered on this world, as
+        the core numbers them: 1, 2, ... in registration order, which is
+        the same on every rank."""
+        return next(self._set_ids)
 
     def bind(self, obj):
         """Have :meth:`close` call ``obj.unbind()``."""
@@ -233,6 +240,24 @@ def create_mesh(axis_sizes=None, world=None):
 
 def mesh_axis_size(mesh, axis):
     return mesh.shape[axis]
+
+
+class PaddedAxis(str):
+    """A spec entry for a dim cut over mesh axis ``self`` after zero
+    padding to a multiple of the axis size (``convert.shard_params``
+    pads the embedding's vocabulary rows so; ROADMAP Queue C, C4). It
+    compares and hashes as the axis name, so every reader of a spec
+    takes it as that axis; ``size`` is the dim's true, unpadded length
+    over the whole mesh, which the checkpoint and ``gather_params``
+    read so that no pad row is written or handed out."""
+
+    def __new__(cls, axis, size):
+        obj = super().__new__(cls, axis)
+        obj.size = int(size)
+        return obj
+
+    def __reduce__(self):       # copy and pickle keep ``size``
+        return (PaddedAxis, (str(self), self.size))
 
 
 def set_leaf_spec(x, spec):

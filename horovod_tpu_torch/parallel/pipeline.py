@@ -117,7 +117,9 @@ def _record_schedule(info):
     _register_autotune_workload(info.label)
     if not _metrics.enabled():
         return
-    _metrics.PIPELINE_TRACES.inc()
+    _metrics.PIPELINE_TRACES.labels(
+        stages=str(info.stages), microbatches=str(info.n_microbatches),
+        schedule=info.label).inc()
     _metrics.PIPELINE_BUBBLE.set(info.ideal_bubble)
     _metrics.PIPELINE_BUBBLE_MEASURED.set(info.bubble_fraction)
     _metrics.PIPELINE_TICKS.set(info.ticks)
@@ -453,7 +455,8 @@ def make_pipeline_value_and_grad(stage_fn, loss_fn, mesh, axis="pipe",
     if name == "zb":
         zb_tabs, reason = _plan_zb(S, M)
         if zb_tabs is None:
-            _metrics.PIPELINE_ZB_FALLBACKS[reason].inc()
+            if _metrics.enabled():
+                _metrics.PIPELINE_ZB_FALLBACKS.labels(reason=reason).inc()
             name = "1f1b"
     tabs = zb_tabs if zb_tabs is not None else _schedules._onef1b_tables(S, M)
     info = _schedules.schedule_info(name, S, M, 1)
@@ -654,7 +657,7 @@ def make_pipeline_train_step(stage_fn, loss_fn, optimizer, mesh, axis="pipe",
         if loss.is_cuda:
             torch.cuda.synchronize(loss.device)
         dur_us = (time.perf_counter_ns() - t0) // 1000
-        _metrics.PIPELINE_STEPS.inc()
+        _metrics.PIPELINE_STEPS.labels(schedule=info.label).inc()
         end_us = time.time_ns() // 1000
         start_us = end_us - dur_us
         _spans.event("PIPELINE_STEP", start_us, dur_us, cat="pipeline",

@@ -5,7 +5,10 @@ A :class:`ProcessSet` names a subset of the world's ranks and holds the
 process group its members share; every Horovod op of the port
 (``ops/torch_ops.py``) takes ``process_set=`` and runs over that group
 alone. Registration is itself a collective: every rank of the world
-calls :func:`add_process_set` with the same ranks.
+calls :func:`add_process_set` with the same ranks. A set's
+``process_set_id`` is the core's: 0 for the global set, then 1, 2, ...
+in the order the world registers sets, None when not registered (the
+metrics label each op with it).
 """
 
 
@@ -14,6 +17,7 @@ class ProcessSet:
         self.ranks = sorted(int(r) for r in ranks)
         self.world = None   # set when registered
         self.group = None   # this rank's group; None off the set
+        self.process_set_id = None
 
     @classmethod
     def from_world(cls, world):
@@ -22,6 +26,7 @@ class ProcessSet:
         ops their own."""
         ps = cls(range(world.size))
         ps.world, ps.group = world, world.group
+        ps.process_set_id = 0
         return ps
 
     def included(self):
@@ -50,6 +55,7 @@ class _GlobalProcessSet(ProcessSet):
 
     def __init__(self):
         super().__init__([])
+        self.process_set_id = 0
 
     def bind(self, world):
         self.ranks = list(range(world.size))
@@ -83,6 +89,7 @@ def add_process_set(process_set_or_ranks, world=None):
                          f"{world.size}")
     ps.group = world.subgroup(ps.ranks)
     ps.world = world
+    ps.process_set_id = world.next_set_id()
     world.bind(ps)
     return ps
 
@@ -94,3 +101,4 @@ def remove_process_set(process_set):
     if process_set.world is None:
         raise ValueError("process set has not been registered")
     process_set.unbind()
+    process_set.process_set_id = None

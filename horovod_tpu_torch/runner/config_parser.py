@@ -1,10 +1,10 @@
 """Config plumbing: YAML file ↔ CLI args ↔ HVD_* env. The port's copy of
 ``horovod_tpu/runner/config_parser.py``, cut to the flags whose variables
 the port reads. The reference's tunables of its C++ core (fusion, cycle
-time, cache, wire, shm, compression, alltoall, NUMA, timeline, stall
-check, autotune, log level) have no reader in the port: the launcher
-refuses their flags, and a file's keys for them are not read (ROADMAP
-Queue A item 16).
+time, cache, wire, shm, compression, alltoall, NUMA, timeline,
+autotune, log level) have no reader in the port: the launcher refuses
+their flags, and a file's keys for them are not read (ROADMAP Queue A
+item 16b).
 
 Reference parity: `horovod/runner/common/util/config_parser.py` — one
 namespace, three layers. Env is the ground truth workers see; CLI overrides
@@ -18,13 +18,19 @@ YAML schema (any subset):
       ep-capacity-factor: 1.25
       pipeline-schedule: 1f1b
       peer-timeout-ms: 2000
+    stall-check:
+      warning-time-seconds: 60
+      shutdown-time-seconds: 600
     metrics:
       enable: true
+      port: 9100
     serve:
       page-size: 16
       kv-pages: 256
       max-batch: 8
       mode: continuous
+      autoscale: true
+      autoscale-high: 8
       prefix-cache: 1
       spec-tokens: 0
     checkpoint:
@@ -40,15 +46,26 @@ ARG_TO_ENV = {
                            lambda v: str(float(v))),
     "pipeline_schedule": ("HVD_PIPE_SCHEDULE", str),
     "peer_timeout_ms": ("HVD_PEER_TIMEOUT_MS", lambda v: str(int(v))),
+    "stall_check_warning_time_seconds": ("HVD_STALL_CHECK_TIME_SECONDS",
+                                         str),
+    "stall_check_shutdown_time_seconds": ("HVD_STALL_SHUTDOWN_TIME_SECONDS",
+                                          str),
     # Observability (horovod_tpu_torch/observability/): the metrics
-    # registry and span recorder gate on HVD_METRICS.
+    # registry, span recorder and stall inspector all gate on
+    # HVD_METRICS; HVD_METRICS_PORT adds a per-worker /metrics endpoint.
     "metrics": ("HVD_METRICS", lambda v: "1" if v else "0"),
+    "metrics_port": ("HVD_METRICS_PORT", str),
     # Serving plane (horovod_tpu_torch/serving/): KV-cache geometry and
     # batcher mode for the serve loop (scheduler.serve_knobs).
     "serve_page_size": ("HVD_SERVE_PAGE_SIZE", lambda v: str(int(v))),
     "serve_kv_pages": ("HVD_SERVE_KV_PAGES", lambda v: str(int(v))),
     "serve_max_batch": ("HVD_SERVE_MAX_BATCH", lambda v: str(int(v))),
     "serve_mode": ("HVD_SERVE_MODE", str),
+    # The elastic driver's queue-depth autoscaler (serving/autoscale.py,
+    # consumed in runner/elastic/driver.py).
+    "serve_autoscale": ("HVD_SERVE_AUTOSCALE", lambda v: "1" if v else "0"),
+    "serve_autoscale_high": ("HVD_SERVE_AUTOSCALE_HIGH",
+                             lambda v: str(int(v))),
     "serve_prefix_cache": ("HVD_SERVE_PREFIX_CACHE",
                            lambda v: str(int(v))),
     "serve_spec_tokens": ("HVD_SERVE_SPEC_TOKENS", lambda v: str(int(v))),
@@ -65,13 +82,17 @@ _FILE_SECTIONS = {
                "ep-capacity-factor": "ep_capacity_factor",
                "pipeline-schedule": "pipeline_schedule",
                "peer-timeout-ms": "peer_timeout_ms"},
-    "metrics": {"enable": "metrics"},
+    "stall-check": {"warning-time-seconds":
+                    "stall_check_warning_time_seconds",
+                    "shutdown-time-seconds":
+                    "stall_check_shutdown_time_seconds"},
+    "metrics": {"enable": "metrics", "port": "metrics_port"},
     "serve": {"page-size": "serve_page_size",
               "kv-pages": "serve_kv_pages",
               "max-batch": "serve_max_batch",
               "mode": "serve_mode",
-              # read so that the launcher can refuse it (ROADMAP item 1)
               "autoscale": "serve_autoscale",
+              "autoscale-high": "serve_autoscale_high",
               "prefix-cache": "serve_prefix_cache",
               "spec-tokens": "serve_spec_tokens"},
     "checkpoint": {"dir": "ckpt_dir",

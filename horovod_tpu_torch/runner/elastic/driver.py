@@ -6,9 +6,19 @@ epoch, this driver hosts a ``torch.distributed.TCPStore`` per epoch of
 two or more workers, where the epoch's ranks build their process groups
 (``distributed.py``, client mode); a store per epoch keeps one epoch's
 keys from meeting the next's. It spawns on this host only: a remote host
-is refused (``hosts.refuse_remote``; ROADMAP Queue A item 16), and the
-reference's queue-depth autoscale waits for ``serving/autoscale.py``
-(item 1, rest).
+is refused (``hosts.refuse_remote``; ROADMAP Queue A item 16c).
+
+Queue-depth autoscale (``tpurun --serve-autoscale``), as the reference
+has it: rank 0 of a serve loop publishes its load at
+``/ctl/serve_load/<wid>`` on this driver's KV store
+(``worker.report_serve_load``), whatever store the epoch's world meets
+in; :meth:`ElasticDriver._check_serve_load` folds each sample through an
+``AutoscalePolicy`` (``serving/autoscale.py``), and a new target caps
+the active set of the next epoch, the workers it displaces parked as
+spares. Beside the reference's stats the port keeps ``serve_loads``,
+the samples consumed, and :func:`run_elastic` publishes the policy's
+starting target in ``target_np`` (the reference's stays 0 until the
+first resize).
 
 Reference parity: `horovod/runner/elastic/driver.py` (`ElasticDriver`),
 `registration.py`, `rendezvous.py`. The driver owns the HTTP KV store;
@@ -69,12 +79,21 @@ class ElasticDriver:
         # eviction is repaired by a rank assignment (incremental epoch)
         # instead of a cold spawn + import + rendezvous.
         self.hot_spares = int(hot_spares or 0)
+        # Queue-depth autoscale (serving plane): an AutoscalePolicy fed
+        # from /ctl/serve_load keys the loop's rank 0 publishes; while
+        # set, _target_np caps the ACTIVE set of each epoch and excess
+        # workers park as spares (scale-up headroom) instead of exiting.
+        self.autoscale = None
+        self._target_np = 0          # 0 = no autoscale cap
         # heartbeat_misses: workers whose liveness heartbeat went stale
         # (_check_liveness); workers publish it as
-        # hvd_elastic_heartbeat_misses.
+        # hvd_elastic_heartbeat_misses. serve_loads: load samples
+        # consumed (_check_serve_load).
         self.stats = {"promotions": 0, "incremental_epochs": 0,
                       "full_epochs": 0, "driver_evictions": 0,
-                      "heartbeat_misses": 0, "last_ckpt_step": -1}
+                      "autoscale_events": 0, "target_np": 0,
+                      "heartbeat_misses": 0, "serve_loads": 0,
+                      "last_ckpt_step": -1}
         self._spares = set()        # wids currently parked as hot spares
         self._active_ranks = {}     # wid -> rank in the CURRENT epoch
         self._rank_hosts = {}       # rank -> hostname in the CURRENT epoch
@@ -183,6 +202,11 @@ class ElasticDriver:
         active, extra = [], []
         per_host = {}
         cap = self.max_np or float("inf")
+        if self._target_np:
+            # Autoscale: the policy's target bounds the active set (never
+            # below min_np); the workers it displaces stay alive as
+            # spares, so the next scale-up is an incremental epoch.
+            cap = min(cap, max(self._target_np, self.min_np))
         for w in alive:
             n = per_host.get(w.hostname, 0)
             host_cap = desired.get(w.hostname, 0) if desired is not None \
@@ -199,9 +223,15 @@ class ElasticDriver:
             extra = extra[len(keep):]
 
         # Hot spares: park up to hot_spares of the excess — rendezvoused,
-        # heartbeating, rankless — instead of telling them to exit.
-        spares = extra[:self.hot_spares]
-        extra = extra[self.hot_spares:]
+        # heartbeating, rankless — instead of telling them to exit. Under
+        # autoscale ALL excess parks: exiting a scaled-down worker would
+        # just respawn it next loop (the host is still desired), and the
+        # whole point of scaling down the ACTIVE set while keeping the
+        # processes warm is that scale-up costs one incremental epoch.
+        n_spares = len(extra) if self.autoscale is not None \
+            else self.hot_spares
+        spares = extra[:n_spares]
+        extra = extra[n_spares:]
 
         promoted = [w for w in active if w.id in self._spares]
         prev = self._active_ranks
@@ -311,6 +341,34 @@ class ElasticDriver:
             self.stats["last_ckpt_step"] = newest
             self._log(f"checkpoint committed @ step {newest}")
             self._publish_stats()
+
+    def _check_serve_load(self):
+        """Consume /ctl/serve_load observations (published by the serve
+        loop's rank 0 — worker.report_serve_load) and fold them through
+        the autoscale policy. Returns True when the target changed and
+        the epoch must be republished."""
+        dirty = seen = False
+        for path, val in self.rdv.scan("/ctl/serve_load").items():
+            self.rdv.delete(path)  # consume: keep the KV bounded
+            try:
+                load = json.loads(val.decode())
+                depth = int(load["queue_depth"])
+                fill = float(load.get("batch_fill", 1.0))
+            except (ValueError, KeyError, TypeError):
+                continue
+            self.stats["serve_loads"] += 1
+            seen = True
+            target = self.autoscale.observe(depth, fill)
+            if target is not None and target != self._target_np:
+                self._log(f"autoscale: target_np -> {target} "
+                          f"(queue_depth={depth}, batch_fill={fill:.2f})")
+                self._target_np = target
+                self.stats["autoscale_events"] += 1
+                self.stats["target_np"] = target
+                dirty = True
+        if seen:
+            self._publish_stats()
+        return dirty
 
     def _publish_stats(self):
         """Publish the driver-side elastic counters to the KV store;
@@ -458,6 +516,10 @@ class ElasticDriver:
                 if self._peer_timeout_ms > 0:
                     membership_dirty |= self._check_liveness(now)
 
+                # Serving-plane load reports drive the autoscale target.
+                if self.autoscale is not None:
+                    membership_dirty |= self._check_serve_load()
+
             # reap exits
             for w in list(self.workers.values()):
                 if w.exit_code is None:
@@ -597,7 +659,25 @@ def run_elastic(args):
                                args.blacklist_cooldown_range)
                            if args.blacklist_cooldown_range else None,
                            hot_spares=hot_spares)
+    if (getattr(args, "serve_autoscale", None)
+            or os.environ.get("HVD_SERVE_AUTOSCALE") == "1"):
+        # The serve loop's rank 0 publishes load to /ctl/serve_load; the
+        # policy resizes the active set between min_np and max_np.
+        from ...serving.autoscale import AutoscalePolicy
+
+        high = getattr(args, "serve_autoscale_high", None)
+        if high is None:
+            try:
+                high = int(os.environ.get("HVD_SERVE_AUTOSCALE_HIGH",
+                                          "0")) or None
+            except ValueError:
+                high = None
+        kw = {} if high is None else {"high_depth": high}
+        driver.autoscale = AutoscalePolicy(
+            min_np, max_np or max(min_np, args.np or min_np), **kw)
+        driver.stats["target_np"] = driver.autoscale.target
     try:
         return driver.run()
     finally:
         driver.stop()
+

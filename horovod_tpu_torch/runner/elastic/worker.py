@@ -89,6 +89,29 @@ def report_eviction(rank, epoch):
         pass
 
 
+def report_serve_load(queue_depth, batch_fill, kv_occupancy=0.0):
+    """Publish the serve loop's load sample to the driver's KV store
+    (/ctl/serve_load/<wid>) for queue-depth autoscaling: the
+    ``load_reporter`` of ``ServeLoop``, which rank 0 of the loop's
+    decision group calls every ``report_interval`` boundaries. The
+    driver consumes the keys, folds them through its AutoscalePolicy and
+    republishes the epoch with a resized active set
+    (serving/autoscale.py). The KV store is the driver's own, so this
+    works alike for epochs whose world meets in the driver's TCPStore
+    and for one-worker epochs, which meet in a HashStore. Best effort
+    like report_eviction: a lost sample only delays the next decision by
+    one interval."""
+    try:
+        http_server.put_kv(
+            _rdv_addr(), "ctl", f"serve_load/{_worker_id()}",
+            json.dumps({"queue_depth": int(queue_depth),
+                        "batch_fill": float(batch_fill),
+                        "kv_occupancy": float(kv_occupancy)}).encode(),
+            secret_key=_rdv_secret())
+    except Exception:
+        pass
+
+
 def report_ckpt_commit(step):
     """Publish the last durably committed checkpoint step to the driver
     (/ctl/ckpt/<wid>). The set root calls this after every commit

@@ -16,9 +16,10 @@ Observability: both servers here also expose the process's metrics
 registry (``horovod_tpu_torch/observability/metrics.py``) as Prometheus
 text at ``GET /metrics`` — the driver's RendezvousServer piggybacks it on
 the KV port, and :class:`MetricsServer` is the standalone per-worker
-endpoint (the port's ``hvd.init()`` does not start one yet). ``/metrics`` is
-read-only health data and scrapers cannot sign requests, so it is served
-without the HMAC check.
+endpoint, which ``hvd.init()`` starts under ``HVD_METRICS=1`` with
+``HVD_METRICS_PORT`` set (``observability.maybe_start_endpoint``).
+``/metrics`` is read-only health data and scrapers cannot sign requests,
+so it is served without the HMAC check.
 """
 
 import os

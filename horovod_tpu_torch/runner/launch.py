@@ -7,9 +7,11 @@ HVD_JAX_COORD_ADDR at the store rank 0 hosts) → spawn one process per
 slot, kill all on any failure. Elastic launch (min-np/max-np + discovery)
 lives in `horovod_tpu_torch.runner.elastic` and is selected the same way
 the reference does it: presence of --min-np/--max-np/--host-discovery-
-script. The reference's flags for the tunables of its C++ core (fusion,
-wire, shm, ...), which nothing in the port reads, and for remote spawn
-(ssh, LSF) are refused: a remote host is ROADMAP Queue A item 16.
+script; ``--serve-autoscale`` resizes an elastic job's active set from
+the serve loop's load. The reference's flags for the tunables of its C++
+core (fusion, wire, shm, timeline, autotune, ...), which nothing in the
+port reads, and for remote spawn (ssh, LSF) are refused: a remote host
+is ROADMAP Queue A item 16c.
 
 Usage:
     python -m horovod_tpu_torch.runner.launch -np 4 python train.py
@@ -66,10 +68,31 @@ def parse_args(argv=None):
                         "(HVD_PIPE_SCHEDULE): gpipe (the default), 1f1b, "
                         "interleaved[:V] (V virtual stage slices per "
                         "rank), or zb")
+    p.add_argument("--no-stall-check", dest="no_stall_check",
+                   action="store_true",
+                   help="turn the stall inspector's warning and shutdown "
+                        "off (both thresholds 0)")
+    p.add_argument("--stall-check-warning-time-seconds",
+                   dest="stall_check_warning_time_seconds", type=int,
+                   default=None,
+                   help="stall inspector: warn about an op that made no "
+                        "progress for this long (HVD_STALL_CHECK_TIME_"
+                        "SECONDS, default 60; needs --metrics)")
+    p.add_argument("--stall-check-shutdown-time-seconds",
+                   dest="stall_check_shutdown_time_seconds", type=int,
+                   default=None,
+                   help="stall inspector: the next Horovod op raises "
+                        "StallError once an op stalled this long "
+                        "(HVD_STALL_SHUTDOWN_TIME_SECONDS, default off)")
     p.add_argument("--metrics", dest="metrics", action="store_true",
                    default=None,
-                   help="enable the observability metrics registry "
-                        "(HVD_METRICS)")
+                   help="enable the observability metrics registry, spans "
+                        "and the stall inspector (HVD_METRICS)")
+    p.add_argument("--metrics-port", dest="metrics_port", type=int,
+                   default=None,
+                   help="serve per-worker Prometheus /metrics on this port "
+                        "(HVD_METRICS_PORT; offset by the local rank, 0 "
+                        "for a free port each)")
     # elastic
     p.add_argument("--min-np", dest="min_np", type=int, default=None)
     p.add_argument("--max-np", dest="max_np", type=int, default=None)
@@ -109,9 +132,15 @@ def parse_args(argv=None):
                         "admitting (HVD_SERVE_MODE)")
     p.add_argument("--serve-autoscale", dest="serve_autoscale",
                    action="store_true", default=None,
-                   help="serving: queue-depth autoscaling of the active "
-                        "set; not ported yet, refused (ROADMAP Queue A "
-                        "item 1, rest)")
+                   help="serving: let the elastic driver resize the "
+                        "active set from /ctl/serve_load queue-depth "
+                        "reports (HVD_SERVE_AUTOSCALE; scale-up promotes "
+                        "parked spares, scale-down parks them)")
+    p.add_argument("--serve-autoscale-high", dest="serve_autoscale_high",
+                   type=int, default=None,
+                   help="serving: queue depth above which the autoscaler "
+                        "wants another rank (HVD_SERVE_AUTOSCALE_HIGH; "
+                        "hysteresis band bottom is fixed at depth<=1)")
     p.add_argument("--serve-prefix-cache", dest="serve_prefix_cache",
                    type=int, choices=[0, 1], default=None,
                    help="serving: radix-tree shared-prefix KV reuse — "
@@ -145,6 +174,9 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     if args.config_file:
         config_parser.apply_config_file(args, args.config_file)
+    if args.no_stall_check:
+        args.stall_check_warning_time_seconds = 0
+        args.stall_check_shutdown_time_seconds = 0
     if not args.command and not args.check_build:
         p.error("no training command given")
     return args
@@ -230,11 +262,6 @@ def run_commandline(argv=None):
     args = parse_args(argv)
     if args.check_build:
         return check_build()
-    if args.serve_autoscale or os.environ.get("HVD_SERVE_AUTOSCALE") == "1":
-        # Queue-depth autoscale needs the port of serving/autoscale.py.
-        raise NotImplementedError(
-            "--serve-autoscale needs serving/autoscale.py, which the port "
-            "does not have yet (ROADMAP Queue A item 1, rest)")
     if args.min_np is not None or args.max_np is not None \
             or args.host_discovery_script:
         from .elastic.driver import run_elastic

@@ -5,4 +5,6 @@
 - :mod:`.kv_cache` — paged K/V tensors (page 0 is the trash page)
 - :mod:`.engine` — prefill / decode / chunk steps over block tables
 - :mod:`.loop` — the continuous-batching serve loop
+- :mod:`.autoscale` — the queue-depth policy the elastic driver folds
+  the loop's load reports through (``tpurun --serve-autoscale``)
 """

@@ -30,7 +30,8 @@ the collectives, they are written out over ``Mesh.group("model")``:
   vocab-parallel (each rank takes the rows it holds, zeros for the rest,
   one all-reduce), and the tied logits are each rank's rows, all-gathered
   on the vocab dim, so every rank holds the same float32 logits, bit for
-  bit.
+  bit. A vocabulary the axis does not divide arrives padded with zero
+  rows (``shard_params``); the logits drop their columns.
 """
 
 import math
@@ -87,7 +88,9 @@ def _embed(params, tokens, cfg, group):
     """Rows ``tokens`` of the embedding table in the compute dtype. Over
     ``group`` the table is this rank's block of the vocabulary: the rank
     looks up the rows it holds, zeros for the others, and one all-reduce
-    sums the blocks (each row is nonzero on one rank only)."""
+    sums the blocks (each row is nonzero on one rank only). A padded
+    vocabulary's pad rows sit past every token id, so no lookup takes
+    one."""
     table, dt = params["embed"], cfg.compute_dtype
     if group is None:
         return table[tokens].to(dt)
@@ -103,10 +106,13 @@ def _embed(params, tokens, cfg, group):
 def _logits(x, params, cfg, group):
     """Float32 logits ``[..., vocab]`` of the hidden states ``x [...,
     D]`` through the tied table; over ``group`` each rank projects onto
-    its block of the vocabulary and the blocks are all-gathered."""
+    its block of the vocabulary and the blocks are all-gathered. The
+    columns of a padded vocabulary's pad rows (``convert.shard_params``)
+    are sliced off here, before any sampling: their logit is 0, which
+    would beat every negative one."""
     out = torch.einsum("...d,vd->...v", x,
                        params["embed"].to(cfg.compute_dtype))
-    return gather(out, group, out.ndim - 1).float()
+    return gather(out, group, out.ndim - 1)[..., :cfg.vocab_size].float()
 
 
 def _ffn_block(x, layer, cfg, mesh, group):

@@ -133,9 +133,12 @@ class ServeLoop:
     baseline); the engine paths are identical either way — the A/B
     isolates the scheduling policy. `load_reporter`, when set, is called
     every `report_interval` boundaries with (queue_depth, batch_fill,
-    kv_occupancy); the reference wires it to its elastic driver's
-    queue-depth autoscaler, which the port does not have yet (ROADMAP
-    Queue A item 1, rest).
+    kv_occupancy) — wire it to runner.elastic.worker.report_serve_load
+    to drive the elastic driver's queue-depth autoscaler
+    (``tpurun --serve-autoscale``). Under a mesh only rank 0 of the
+    loop's decision group calls it: the ranks serve the same requests, so
+    one report stands for all of them (the depth is still this rank's
+    own reading, never an input to a decision).
 
     Serving-v2 knobs (None = read the HVD_SERVE_* env knob):
 
@@ -179,6 +182,8 @@ class ServeLoop:
         self.mode = mode
         self.load_reporter = load_reporter
         self.report_interval = int(report_interval)
+        self._reports = (self._clock_group is None
+                         or self._clock_group.rank() == 0)
         self.prefill_chunk = (min(geo.max_kv, 2 * geo.page_size)
                               if prefill_chunk is None
                               else int(prefill_chunk))
@@ -466,7 +471,7 @@ class ServeLoop:
             occ_samples.append(self.batcher.kv_occupancy())
             boundaries += 1
             self._publish()
-            if (self.load_reporter is not None
+            if (self.load_reporter is not None and self._reports
                     and boundaries % self.report_interval == 0):
                 self.load_reporter(self.batcher.queue_depth(),
                                    self.batcher.batch_fill(),

@@ -50,7 +50,9 @@ torch.set_num_threads(1)
 from horovod_tpu import elastic as jelastic  # noqa: E402
 from horovod_tpu import exceptions as jexc  # noqa: E402
 from horovod_tpu.observability import metrics as jmetrics  # noqa: E402
+from horovod_tpu.runner import config_parser as jconfig  # noqa: E402
 from horovod_tpu.runner import http_server as jkv  # noqa: E402
+from horovod_tpu.runner import launch as jlaunch  # noqa: E402
 from horovod_tpu.runner.elastic import driver as jdriver  # noqa: E402
 from horovod_tpu.runner.elastic.discovery import (  # noqa: E402
     FixedHosts as JFixedHosts)
@@ -395,11 +397,11 @@ class _Proc:
 
 
 T0 = 1000.0
-# The driver stats both drivers keep. The reference's autoscale_events and
-# target_np wait for the port's autoscaler (ROADMAP Queue A item 1); the
-# port's heartbeat_misses is tested on its own.
+# The driver stats both drivers keep; the port's heartbeat_misses and
+# serve_loads are tested on their own (and in test_torch_autoscale.py).
 _SHARED_STATS = ("promotions", "incremental_epochs", "full_epochs",
-                 "driver_evictions", "last_ckpt_step")
+                 "driver_evictions", "autoscale_events", "target_np",
+                 "last_ckpt_step")
 
 
 def _script(mod, drv):
@@ -565,11 +567,10 @@ def test_launcher_flags_set_only_variables_the_port_reads():
         assert f'"{var}"' in text, (attr, var)
     for section, keys in config_parser._FILE_SECTIONS.items():
         for attr in keys.values():
-            assert attr in config_parser.ARG_TO_ENV or \
-                attr == "serve_autoscale", (section, attr)
+            assert attr in config_parser.ARG_TO_ENV, (section, attr)
     for flag in ("--fusion-threshold-mb", "--cycle-time-ms", "--wire",
                  "--compression", "--autotune", "--ssh-port",
-                 "--metrics-port", "--timeline-filename"):
+                 "--timeline-filename"):
         with pytest.raises(SystemExit):
             launch.parse_args([flag, "1", "true"])
     args = launch.parse_args(["--bucket", "1", "--peer-timeout-ms", "900",
@@ -577,20 +578,35 @@ def test_launcher_flags_set_only_variables_the_port_reads():
     assert config_parser.args_to_env(args) == {
         "HVD_BUCKET": "1", "HVD_PEER_TIMEOUT_MS": "900",
         "HVD_CKPT_ASYNC": "1"}
+    # The observability and autoscale flags, as the reference maps them.
+    argv = ["--metrics", "--metrics-port", "9100", "--serve-autoscale",
+            "--serve-autoscale-high", "5",
+            "--stall-check-warning-time-seconds", "30",
+            "--stall-check-shutdown-time-seconds", "90", "true"]
+    want = {"HVD_METRICS": "1", "HVD_METRICS_PORT": "9100",
+            "HVD_SERVE_AUTOSCALE": "1", "HVD_SERVE_AUTOSCALE_HIGH": "5",
+            "HVD_STALL_CHECK_TIME_SECONDS": "30",
+            "HVD_STALL_SHUTDOWN_TIME_SECONDS": "90"}
+    assert config_parser.args_to_env(launch.parse_args(argv)) == want
+    jenv = jconfig.args_to_env(jlaunch.parse_args(argv))
+    assert {k: jenv[k] for k in want} == want
+    off = config_parser.args_to_env(launch.parse_args(
+        ["--no-stall-check", "true"]))
+    assert off == {"HVD_STALL_CHECK_TIME_SECONDS": "0",
+                   "HVD_STALL_SHUTDOWN_TIME_SECONDS": "0"}
 
 
 @pytest.mark.parametrize("argv", [
     ["-H", "localhost:1,otherhost:1", "true"],
     ["--min-np", "1", "--host-discovery-script", "echo otherhost:1",
      "true"],
-    ["--serve-autoscale", "true"],
-], ids=["static-remote", "elastic-remote", "serve-autoscale"])
+], ids=["static-remote", "elastic-remote"])
 def test_launcher_refuses_what_the_port_cannot_run(argv):
-    """A remote host (item 16) and queue-depth autoscale (item 1) raise
-    before any worker starts, naming the item."""
+    """A remote host (item 16) raises before any worker starts, naming
+    the item. (``--serve-autoscale`` runs: test_torch_autoscale.py.)"""
     from horovod_tpu_torch.runner import launch
 
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
+    with pytest.raises(NotImplementedError, match="Queue A item 16"):
         launch.run_commandline(argv)
 
 

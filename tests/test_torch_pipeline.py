@@ -359,7 +359,7 @@ def test_zb_single_stage_falls_back_and_stays_correct(metrics_on):
 
     ref_loss, ref_grad = jax.jit(jax.value_and_grad(seq_loss))(
         jnp.asarray(W))
-    counter = metrics.PIPELINE_ZB_FALLBACKS["single_stage"]
+    counter = metrics.PIPELINE_ZB_FALLBACKS.labels(reason="single_stage")
 
     def rank(world):
         mesh = create_mesh({"pipe": 1}, world)
@@ -398,7 +398,7 @@ def _bad_tables(reason):
 def test_zb_fallback_reasons_are_counted(reason, metrics_on, monkeypatch):
     monkeypatch.setattr(tpipe._schedules, "_zb_tables", _bad_tables(reason))
     assert tpipe._plan_zb(2, 4) == (None, reason)
-    counter = metrics.PIPELINE_ZB_FALLBACKS[reason]
+    counter = metrics.PIPELINE_ZB_FALLBACKS.labels(reason=reason)
 
     def rank(world):
         mesh = create_mesh({"pipe": 2}, world)
@@ -429,11 +429,13 @@ def test_pipeline_spans_and_metrics(metrics_on):
         step(p, {"x": torch.tensor(x), "y": torch.tensor(y)})
         return threading.current_thread().name
 
-    steps = metrics.PIPELINE_STEPS.value
-    traces = metrics.PIPELINE_TRACES.value
+    steps = metrics.PIPELINE_STEPS.labels(schedule="gpipe")
+    traces = metrics.PIPELINE_TRACES.labels(
+        stages=str(S), microbatches=str(M), schedule="gpipe")
+    n_steps, n_traces = steps.value, traces.value
     names = run_worlds(S, rank)
-    assert metrics.PIPELINE_STEPS.value - steps == S
-    assert metrics.PIPELINE_TRACES.value - traces >= S
+    assert steps.value - n_steps == S
+    assert traces.value - n_traces >= S
     assert metrics.PIPELINE_BUBBLE_MEASURED.value == info.bubble_fraction
     assert metrics.PIPELINE_BUBBLE.value == info.ideal_bubble
     assert metrics.PIPELINE_TICKS.value == info.ticks

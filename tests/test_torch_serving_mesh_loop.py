@@ -17,6 +17,7 @@ agree only through the loop's broadcast of rank 0's clock.
 - At ``{"model": 1}`` every group has one rank and moves nothing
   (``sharding.solo``): the loop issues no collective and its chains are
   the mesh-free loop's.
+- The load reporter is called on rank 0 of the decision group only.
 """
 
 import time
@@ -146,3 +147,34 @@ def test_one_rank_mesh_issues_no_collective(n_experts, monkeypatch):
 
     assert run_worlds(1, rank) == [want]
     assert calls == []
+
+
+def test_only_rank_0_of_the_decision_group_reports_load():
+    """``load_reporter`` (``worker.report_serve_load`` in a job) is called
+    on rank 0 of the group the loop's decisions are taken over, and on no
+    other rank: the ranks serve the same requests, so one report stands
+    for them. Mesh-free, the loop reports itself."""
+    _, tcfg = cfgs(0)
+    full = params(0)[0]
+    seen = []
+
+    def rank(world):
+        tmesh = create_mesh({"model": 2}, world)
+        tl = tloop.ServeLoop(
+            shard_params(full, tcfg, tmesh), tcfg,
+            geo=kv_cache.geometry(**GEO), mesh=tmesh, max_batch=3,
+            load_reporter=lambda *load: seen.append((world.rank, load)),
+            report_interval=2)
+        summary, _ = tl.run(_requests(tloop),
+                            clock=_skewed_clock(world.rank))
+        return summary["requests"]
+
+    assert run_worlds(2, rank) == [6, 6]
+    assert seen and {r for r, _ in seen} == {0}
+    depth, fill, occupancy = seen[0][1]
+    assert depth >= 0 and 0.0 <= fill <= 1.0 and 0.0 <= occupancy <= 1.0
+    free = []
+    tloop.ServeLoop(full, tcfg, geo=kv_cache.geometry(**GEO), device="cpu",
+                    max_batch=3, load_reporter=lambda *load: free.append(load),
+                    report_interval=2).run(_requests(tloop))
+    assert free
